@@ -1,7 +1,7 @@
 """Sphinx configuration for the sustaingym_tpu documentation site.
 
 Mirrors the reference's doc tooling (/root/reference/docs/conf.py: Sphinx +
-myst_parser over the same markdown page set) for the TPU-native rebuild.
+myst_parser over the same markdown page set) for the batched JAX rebuild.
 All content pages are plain markdown and readable without a build; this
 config exists so `make html` produces the site wherever sphinx +
 myst-parser are installed (they are intentionally NOT runtime dependencies

@@ -1,4 +1,4 @@
-"""Per-agent-policy training on the multi-agent cogen env — the TPU-native
+"""Per-agent-policy training on the multi-agent cogen env — the batched
 analogue of the reference's per-agent RLLib PolicySpec setup
 (/root/reference/examples/cogen/train_rllib.py:99-157: one PPO policy per
 GT1/GT2/GT3/ST agent, per-agent rewards of own fuel+ramp+cv plus a shared

@@ -7,7 +7,7 @@ Two execution paths:
 
 - ``BaseAlgorithm.run(seeds)``: classic imperative loop over a gymnasium /
   pettingzoo adapter (drop-in for the reference API);
-- ``batch_run(env, params, policy_fn, seeds)``: the TPU path — all seeds
+- ``batch_run(env, params, policy_fn, seeds)``: the device path — all seeds
   stepped in lockstep under one jitted scan (replaces the reference's
   ProcessPool evaluation, examples/evcharging/run_baselines.py:105-117).
 """

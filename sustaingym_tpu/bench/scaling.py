@@ -6,21 +6,22 @@ tensor parallelism over ``mp``, gradients all-reduced by XLA collectives.
 Reports env-steps/s at each device count and scaling efficiency vs one
 device (the BASELINE.md scaling metric).
 
-On a machine without a pod slice, run it on virtual CPU devices:
+On a machine with one device, rehearse it on virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python -m sustaingym_tpu.bench.scaling --devices 1 2 4 8
 
-On a real pod slice it uses the available TPU chips (and, under
+On a multi-GPU host it uses the available cards (and, under
 ``jax.distributed``, spans hosts with the same code — the mesh just grows).
-Env shards are embarrassingly parallel, so the only cross-device traffic
-is the gradient psum over ICI; efficiency should stay near 1.
+Env shards are embarrassingly parallel; the PPO update gathers the
+trajectory (NCCL over NVLink) and runs replicated on every device.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import time
 
 
@@ -35,7 +36,10 @@ def _force_cpu_if_virtual() -> None:
 
 def measure(n_devices: int, env_name: str, num_envs: int, rollout_len: int,
             iters: int, mp: int = 1, algo: str = "ppo",
-            hidden: int = 256) -> dict:
+            hidden: int = 256, env_kwargs: dict | None = None,
+            ppo_kwargs: dict | None = None) -> dict:
+    """Times ``iters`` warm train steps on an ``n_devices`` mesh.
+    ``env_kwargs`` go to ``make``; ``ppo_kwargs`` to ``PPOConfig``."""
     import jax
 
     from .. import make
@@ -45,7 +49,7 @@ def measure(n_devices: int, env_name: str, num_envs: int, rollout_len: int,
     from ..parallel.ppo import _shard_carry, make_train_step
     from ..parallel.sac import shard_sac_carry
 
-    env, params = make(env_name)
+    env, params = make(env_name, **(env_kwargs or {}))
     mesh = make_mesh(n_devices, mp=mp)
     if algo == "sac":
         cfg = SACConfig(num_envs=num_envs, rollout_len=rollout_len,
@@ -55,15 +59,20 @@ def measure(n_devices: int, env_name: str, num_envs: int, rollout_len: int,
         carry = shard_sac_carry(carry, mesh)
     else:
         cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout_len,
-                        hidden=hidden)
-        init_state, train_step = make_train_step(env, params, cfg)
+                        hidden=hidden, **(ppo_kwargs or {}))
+        init_state, train_step = make_train_step(env, params, cfg,
+                                                 mesh=mesh)
         carry = init_state(jax.random.PRNGKey(0))
         ds, rep = data_sharding(mesh), replicated(mesh)
         carry = _shard_carry(carry, mesh, ds, rep)
 
     step = jax.jit(train_step, donate_argnums=0)
-    carry, _ = step(carry, jax.random.PRNGKey(1))   # compile
-    jax.block_until_ready(carry)
+    # the compile call, then one more untimed step: the first step after
+    # compilation is not steady state (on 4 H100s it took 0.87 s against
+    # 0.14 s for the next ones)
+    for i in range(2):
+        carry, _ = step(carry, jax.random.PRNGKey(100 + i))
+        jax.block_until_ready(carry)
     t0 = time.perf_counter()
     for i in range(iters):
         carry, metrics = step(carry, jax.random.PRNGKey(2 + i))
@@ -75,16 +84,19 @@ def measure(n_devices: int, env_name: str, num_envs: int, rollout_len: int,
 
 
 def equivalence(n_devices: int, env_name: str, num_envs: int,
-                rollout_len: int, mp: int = 1) -> dict:
+                rollout_len: int, mp: int = 1,
+                env_kwargs: dict | None = None,
+                ppo_kwargs: dict | None = None) -> dict:
     """Correctness signal for the scaling artifact (round-4 verdict): run
     ONE PPO train step from IDENTICAL initial carries at dp=1 and at
     dp=``n_devices`` (same total batch, same keys) and report the max abs
     diff over the returned metrics. Sharding only changes XLA's reduction
     tree, so the diff is float-reassociation noise (~1e-6 relative) — a
-    layout/collective bug would show up as a large value here.
+    layout/collective bug would show up as a large value here. Also
+    reports the carry's env-batch sharding and the dp=N program's
+    collectives (none means every device ran the whole batch).
     ``tests/test_debug_distributed.py`` pins the stronger bit-identical
-    claim for same-sharding multi-process runs; this line travels with the
-    (virtual, otherwise meaningless) efficiency number in BENCH."""
+    claim for same-sharding multi-process runs."""
     import jax
 
     from .. import make
@@ -92,30 +104,46 @@ def equivalence(n_devices: int, env_name: str, num_envs: int,
     from ..parallel.mesh import data_sharding, replicated
     from ..parallel.ppo import _shard_carry, make_train_step
 
-    env, params = make(env_name)
-    cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout_len)
-    init_state, train_step = make_train_step(env, params, cfg)
+    env, params = make(env_name, **(env_kwargs or {}))
+    cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout_len,
+                    **(ppo_kwargs or {}))
 
     metrics = {}
     for n in (1, n_devices):
         mesh = make_mesh(n, mp=mp)
+        init_state, train_step = make_train_step(env, params, cfg,
+                                                 mesh=mesh)
         carry = init_state(jax.random.PRNGKey(0))
         carry = _shard_carry(carry, mesh, data_sharding(mesh),
                              replicated(mesh))
-        _, m = jax.jit(train_step, donate_argnums=0)(
-            carry, jax.random.PRNGKey(1))
+        key = jax.random.PRNGKey(1)
+        step = jax.jit(train_step, donate_argnums=0).lower(
+            carry, key).compile()
+        env_sharding = jax.tree.leaves(carry["env_states"])[0].sharding
+        _, m = step(carry, key)
         metrics[n] = {k: float(v) for k, v in jax.device_get(m).items()}
     diff = max(abs(metrics[1][k] - metrics[n_devices][k])
                for k in metrics[1])
     return {"dp1_vs_dpN_metrics_max_abs_diff": diff,
             "devices": n_devices,
             "metrics_dp1": metrics[1],
-            "metrics_dpN": metrics[n_devices]}
+            "metrics_dpN": metrics[n_devices],
+            "env_batch_spec": str(env_sharding.spec),
+            "env_batch_devices": [d.id for d in env_sharding.device_set],
+            "collectives_dpN": collective_counts(step.as_text())}
+
+
+def collective_counts(hlo_text: str) -> dict[str, int]:
+    """Cross-device collectives in a compiled HLO module's text. A dp=N
+    PPO step without any computes the whole batch on every device."""
+    return {op: len(re.findall(rf"\b{op}(-start)?\(", hlo_text))
+            for op in ("all-reduce", "all-gather", "reduce-scatter",
+                       "all-to-all", "collective-permute")}
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--env", default="building")
+    parser.add_argument("--env", default="evcharging")
     parser.add_argument("--devices", type=int, nargs="+", default=None,
                         help="device counts to sweep (default: 1..all)")
     parser.add_argument("--num-envs", type=int, default=512,

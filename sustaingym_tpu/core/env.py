@@ -1,4 +1,4 @@
-"""Functional environment protocol for the TPU-native engine.
+"""Functional environment protocol for the batched engine.
 
 Design (SURVEY.md §7 design rule 1): every env is a pure function pair
 
@@ -105,7 +105,7 @@ def autoreset_step(env: FunctionalEnv[P, S]
     When an episode ends, the returned state/obs are those of a freshly
     reset episode (keyed independently), while reward/terminated/truncated
     of the finishing step are preserved. This keeps ``vmap`` batches stepping
-    in lockstep forever with no host round-trip — the TPU replacement for
+    in lockstep forever with no host round-trip — the device replacement for
     SubprocVecEnv/RLLib worker autoreset
     (/root/reference/examples/evcharging/train_stable_baselines.py:275).
     """
@@ -130,21 +130,17 @@ def autoreset_vstep(env: FunctionalEnv[P, S]
 
     Every env in the suite has a fixed episode length, so vmapped batches
     step in lockstep and the done row is all-false on all but the episode-
-    boundary step — per-env ``vmap(reset)`` every step (which the
-    elementwise ``where`` then discards) was measured at ~40% of a PPO
-    rollout's device time on building (4096x64: 8.5ms -> 4.7ms without it).
-    The key derivation (per-env ``split(key) -> (key_step, key_reset)``) and
-    all selected values are IDENTICAL to ``vmap(autoreset_step(env))`` —
-    trajectories stay bit-exact; only the dead reset work is skipped.
+    boundary step — per-env ``vmap(reset)`` every step would be work the
+    elementwise ``where`` then discards. The key derivation (per-env
+    ``split(key) -> (key_step, key_reset)``) and all selected values are
+    IDENTICAL to ``vmap(autoreset_step(env))`` — trajectories stay
+    bit-exact; only the dead reset work is skipped.
 
     Envs can opt out with ``gate_autoreset = False`` (class attribute)
     when the per-step branch dispatch costs more than the dead reset work
     it skips (the cond also blocks XLA from CSEing work shared between
-    step and reset). Cogen used the opt-out while its step re-gathered
-    the ambient day row (7.6M vs 6.0M PPO env-steps/s); once the slab
-    moved into the state, reset became the expensive side and the gate
-    won again (11-12M vs 10.4M) — no suite env currently opts out, but
-    the escape hatch stays for fine-grained-step envs.
+    step and reset). No suite env currently opts out; the escape hatch
+    stays for fine-grained-step envs.
 
     Args are batched: states/actions/keys carry a leading batch axis;
     ``params`` is shared.

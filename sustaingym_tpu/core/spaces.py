@@ -30,8 +30,8 @@ class Space:
     def sample_batch(self, key: jax.Array, batch: int) -> Any:
         """Samples ``batch`` independent points with ONE wide RNG op.
 
-        Semantically equivalent to ``vmap(sample)(split(key, batch))`` but
-        ~batch times cheaper on TPU: a single threefry call over the whole
+        Semantically equivalent to ``vmap(sample)(split(key, batch))``;
+        spaces override it with a single threefry call over the whole
         (batch, ...) block instead of ``batch`` key splits + tiny samples.
         The random stream differs from the vmapped form (both are uniform).
         """

@@ -20,7 +20,6 @@ import os
 from zoneinfo import ZoneInfo
 
 import numpy as np
-import pandas as pd
 
 from .paths import packed_path, raw_path
 
@@ -80,6 +79,9 @@ def build_moer_pack(date_period, ba: str = MOER_BA, cache: bool = True
     if cache and os.path.exists(cache_file):
         return np.load(cache_file)["moer"]
 
+    # raw-CSV path (ranges without a committed pack): needs pandas
+    import pandas as pd
+
     # load all months overlapping [start, end + 1 day]
     frames = []
     cur = dt.date(start.year, start.month, 1)
@@ -115,7 +117,9 @@ def build_moer_pack(date_period, ba: str = MOER_BA, cache: bool = True
 # Real session traces
 # ---------------------------------------------------------------------------
 
-def _load_sessions(site: str, date_period) -> pd.DataFrame:
+def _load_sessions(site: str, date_period):
+    import pandas as pd
+
     start, end = _parse_range(date_period)
     for rng in DEFAULT_DATE_RANGES:
         if (dt.date.fromisoformat(rng[0]) <= start

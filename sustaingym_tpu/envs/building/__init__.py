@@ -1,4 +1,4 @@
-"""BuildingEnv: multi-zone thermal RC control, TPU-native."""
+"""BuildingEnv: multi-zone thermal RC control as a batched JAX program."""
 from __future__ import annotations
 
 from .env import BuildingEnv, BuildingParams, BuildingState, make_params

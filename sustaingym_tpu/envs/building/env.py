@@ -4,7 +4,7 @@ Semantics mirror the reference BuildingEnv
 (/root/reference/sustaingym/envs/building/env.py:16-434): a discrete LTI
 update ``X' = A_d X + BD_d Y`` per step, occupant sensible-heat polynomial,
 reward ``-(q_rate * ||a||_p + beta * ||err||_p)``, seed->epoch episode
-selection over a year of weather. Redesigned TPU-first:
+selection over a year of weather. Redesigned for batched accelerators:
 
 - all per-step work is one (n,n)x(n,) + (n,n+4)x(n+4,) matmul pair — fused by
   XLA and vmapped over thousands of building instances;
@@ -46,15 +46,13 @@ class BuildingParams:
     # packed exogenous table [out, ground, ghi, metabolism], padded with its
     # own first episode_len rows so epoch wraparound reads (reference
     # env.py:302-305 wraps epoch to 0) resolve without a modulo. One row
-    # gather per step replaces four scalar gathers — TPU gather throughput
-    # is per-index, so fewer/wider gathers are strictly faster.
+    # gather per step replaces four scalar gathers.
     exog: jax.Array           # (T + episode_len, 4)
     # the same table packed 32 epochs per 128-float row: the generic
-    # (vmapped) step's per-env row gather of 4-wide rows pads each index
-    # to the 128-lane tile (32x read amplification — profiled at 11% of
-    # the whole PPO train step). Gathering one aligned 128-wide chunk row
-    # and selecting the epoch's 4 columns with an EXACT one-hot contract
-    # (one 1.0*v product per output) replaces it at full gather width.
+    # (vmapped) step gathers one 128-wide chunk row and selects the
+    # epoch's 4 columns with an EXACT one-hot contract (one 1.0*v product
+    # per output) instead of gathering a 4-wide row per env. Its cost on
+    # the H100 against a plain row gather is not measured.
     exog_chunks: jax.Array    # (ceil((T+episode_len)/32), 128)
     # zone config
     target: jax.Array         # (n,)
@@ -341,8 +339,7 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
         episode segment are one contiguous slice of ``params.exog`` — fetched
         with a single vmapped ``dynamic_slice`` per segment (one gather of
         ``batch`` indices amortized over ``episode_len`` steps) and fed to
-        ``lax.scan`` time-major. TPU gather cost is per-index, which makes
-        this ~10x faster than gathering 4 scalars per env per step.
+        ``lax.scan`` time-major.
         """
         L = params.episode_len
         Tw = params.length_of_weather
@@ -360,14 +357,13 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
         x0_fresh = jnp.broadcast_to(
             params.target.astype(dtype), (batch, params.n))
 
-        from ...ops.pallas import episode_slice_gather
+        from ...ops.gather import episode_slice_gather
 
         parts = []
         t = 0
         while t < num_steps:
             seg_len = min(L, num_steps - t)
-            # rows for epochs e0 .. e0+seg_len-1 (padding handles wraparound);
-            # Pallas slice-gather kernel on TPU, vmapped dynamic_slice off-TPU
+            # rows for epochs e0 .. e0+seg_len-1 (padding handles wraparound)
             block = episode_slice_gather(params.exog, e0, seg_len)
             block = jnp.swapaxes(block, 0, 1)          # (seg_len, B, 4)
             seg_keys = keys[t:t + seg_len]
@@ -413,235 +409,6 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
                 traj = traj.replace(obs=traj.obs.at[-1].set(obs))
             parts.append(traj)
             t += seg_len
-
-        if len(parts) == 1:
-            return parts[0]
-        return jax.tree.map(lambda *xs: jnp.concatenate(xs, axis=0), *parts)
-
-    # ---- policy-in-kernel fast path (parallel.ppo fused protocol) -------
-    def fused_layout(self, params: BuildingParams) -> dict:
-        from ...ops.pallas.building_rollout import building_fused_layout
-        return building_fused_layout(params.n)
-
-    def fused_policy_unroll_supported(self, params: BuildingParams,
-                                      batch: int) -> bool:
-        """Static gate for :meth:`fused_policy_unroll` (same contract as
-        EVChargingEnv's): continuous physics-mode f32 params, p=2 reward,
-        n <= 8 zones, 128-lane batch, one real TPU device."""
-        return (params.is_continuous_action and not params.data_driven
-                and params.reward_pnorm == 2 and params.n <= 8
-                and params.A_d.dtype == jnp.float32
-                and batch % 128 == 0
-                and jax.devices()[0].platform == "tpu"
-                and jax.device_count() == 1)
-
-    def fused_policy_unroll(self, params: BuildingParams, policy: dict,
-                            key: jax.Array, batch: int, num_steps: int,
-                            w: int = 2048, noise: jax.Array | None = None,
-                            interpret: bool = False) -> dict:
-        """Policy-in-kernel fused episode rollout for the PPO learner —
-        the building counterpart of EVChargingEnv.fused_policy_unroll
-        (see ops/pallas/building_rollout.py policy-mode block): the
-        2-layer tanh actor samples inside the Pallas episode kernel and
-        the learner consumes the (block, feature-rows, lanes) output
-        verbatim. ``num_steps`` must equal one episode."""
-        L = params.episode_len
-        if num_steps != L:
-            raise ValueError("fused_policy_unroll runs exactly one episode")
-        w = min(w, max(128, (batch // 128) * 128))
-        while batch % w:          # any 128-multiple batch works: halve the
-            w //= 2               # lane group down to an aligned width
-        if w < 128:
-            raise ValueError(f"batch {batch} must be a multiple of 128")
-        from ...ops.pallas import episode_slice_gather
-        from ...ops.pallas.building_rollout import (
-            build_operator, fused_building_policy_segment,
-            pack_building_policy_weights)
-
-        n = params.n
-        Tw = params.length_of_weather
-        nb = batch // w
-        m = build_operator(params)
-        consts = jnp.zeros((32, w), jnp.float32)
-        consts = consts.at[0:n].set(
-            jnp.broadcast_to(params.ac_map[:, None], (n, w)))
-        consts = consts.at[8:8 + n].set(
-            jnp.broadcast_to(params.target[:, None], (n, w)))
-        consts = consts.at[16].set(params.q_rate)
-        consts = consts.at[17].set(params.error_rate)
-        w1k, w2k, wmk, pb, pm = pack_building_policy_weights(policy, n)
-
-        key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, batch)
-        e0 = jax.vmap(lambda k: jax.random.randint(
-            k, (), 0, Tw - 1))(init_keys)
-        block = episode_slice_gather(params.exog, e0, L)   # (B, L, 4)
-        wx = jnp.transpose(block.reshape(nb, w, L, 4), (0, 2, 3, 1))
-
-        if noise is None:
-            nz = jnp.zeros((1, 1, 1, w), jnp.float32)
-            seed = jax.random.randint(
-                jax.random.fold_in(key_scan, 0), (), 0, 2 ** 31 - 1)
-            use_rng = True
-        else:
-            nz = jnp.asarray(noise, jnp.float32)
-            nz = jnp.transpose(nz.reshape(L, nb, w, 8), (1, 0, 3, 2))
-            seed = jnp.zeros((), jnp.int32)
-            use_rng = False
-        out, lrn = fused_building_policy_segment(
-            m, consts, w1k, w2k, wmk, pb, pm, wx, nz, seed, L, n, w,
-            use_rng, interpret=interpret)
-
-        def field(i):
-            return jnp.transpose(
-                out[:, :, i, :], (1, 0, 2)).reshape(num_steps, batch)
-
-        width = lrn.shape[2]
-        obs_blk = lrn.reshape(nb * num_steps, width, w)
-        done = jnp.zeros((num_steps, batch), bool)
-        done = done.at[L - 1::L].set(True)
-        return {
-            "obs_blk_k": obs_blk,
-            "nb": nb, "w": w,
-            "reward": field(0),
-            "done": done,
-            "comfort_cost": field(1),
-            "power_cost": field(2),
-            "epochs": e0,
-        }
-
-    def fused_rollout(self, params: BuildingParams, key: jax.Array,
-                      batch: int, num_steps: int, actions: jax.Array | None
-                      = None, il: int = 8, width: int = 128,
-                      interpret: bool = False) -> TimeStep:
-        """Maximum-throughput rollout: whole episode segments run inside one
-        Pallas kernel per env tile (ops/pallas/building_rollout.py).
-
-        Semantics match :meth:`batch_unroll` except the policy: with
-        ``actions`` (shape (num_steps, batch, n), exercised by the parity
-        tests) the trajectory matches the XLA path to float tolerance; with
-        ``actions=None`` the kernel draws uniform U(-ac, ac) actions from
-        the on-core PRNG — the same distribution as ``random_policy`` on a
-        counter-based stream (different bits than jax.random). Reset-epoch
-        streams reuse the jax.random derivation of :meth:`batch_unroll`, so
-        episode CONTENT (weather slices) is identically distributed.
-        568M env-steps/s measured on one v5e at batch 65536 (il=8, w=128).
-
-        Requires: continuous actions, physics dynamics, p=2 reward, n <= 8,
-        batch % (il * width) == 0. Falls back to :meth:`batch_unroll` (with
-        its key-derived random policy) otherwise when ``actions`` is None.
-        """
-        from ...ops.pallas import episode_slice_gather
-        from ...ops.pallas.building_rollout import (build_operator,
-                                                    fused_building_segment)
-
-        tile = il * width
-        on_tpu = jax.devices()[0].platform == "tpu"
-        supported = (params.is_continuous_action and not params.data_driven
-                     and params.reward_pnorm == 2 and params.n <= 8
-                     and batch % tile == 0
-                     and params.A_d.dtype == jnp.float32
-                     and (on_tpu or interpret))
-        if not supported:
-            if actions is not None:
-                raise ValueError("fused_rollout with explicit actions "
-                                 "requires a supported config")
-            from ...core.rollout import random_policy
-            return self.batch_unroll(params, random_policy(self, params,
-                                                           batch), None,
-                                     key, batch, num_steps)
-
-        n = params.n
-        L = params.episode_len
-        Tw = params.length_of_weather
-        nb = batch // tile
-        m = build_operator(params)
-        consts = jnp.zeros((32, width), jnp.float32)
-        consts = consts.at[0:n].set(
-            jnp.broadcast_to(params.ac_map[:, None], (n, width)))
-        consts = consts.at[8:8 + n].set(
-            jnp.broadcast_to(params.target[:, None], (n, width)))
-        consts = consts.at[16].set(params.q_rate)
-        consts = consts.at[17].set(params.error_rate)
-
-        key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, batch)
-        e0 = jax.vmap(
-            lambda k: jax.random.randint(k, (), 0, Tw - 1))(init_keys)
-        keys = jax.random.split(key_scan, num_steps)
-        dummy_acts = jnp.zeros((1, 1, 1, 8, width), jnp.float32)
-
-        parts = []
-        t0 = 0
-        seg_idx = 0
-        while t0 < num_steps:
-            seg_len = min(L, num_steps - t0)
-            blk = episode_slice_gather(params.exog, e0, seg_len)
-            wx = jnp.transpose(
-                blk.reshape(nb, il, width, seg_len, 4), (0, 1, 3, 4, 2))
-            if actions is None:
-                acts_k = dummy_acts
-                seed = jax.random.randint(
-                    jax.random.fold_in(key_scan, seg_idx), (), 0, 2 ** 31 - 1)
-            else:
-                a = jnp.asarray(actions[t0:t0 + seg_len], jnp.float32)
-                a8 = jnp.zeros((seg_len, batch, 8),
-                               jnp.float32).at[:, :, :n].set(a)
-                acts_k = jnp.transpose(
-                    a8.reshape(seg_len, nb, il, width, 8), (1, 2, 0, 4, 3))
-                seed = jnp.zeros((), jnp.int32)
-            out = fused_building_segment(
-                m, consts, wx, acts_k, seed, seg_len, n, il, width,
-                use_rng=actions is None, interpret=interpret)
-            # unpack (nb, il, seg, 16, width): slice each field from the raw
-            # buffer BEFORE transposing so XLA can DCE whatever the caller
-            # doesn't use (a shared (seg, B, 16) transpose would materialize
-            # the full 4.8 GB even for a rewards-only consumer)
-            def field(lo, hi=None):
-                sl = out[:, :, :, lo, :] if hi is None \
-                    else out[:, :, :, lo:hi, :]
-                perm = (2, 0, 1, 3) if hi is None else (2, 0, 1, 4, 3)
-                y = jnp.transpose(sl, perm)
-                shape = (seg_len, batch) if hi is None \
-                    else (seg_len, batch, hi - lo)
-                return y.reshape(shape)
-
-            x_new = field(0, n)
-            occ = field(8)
-            reward = field(9)
-            comfort_cost = field(10)
-            power_cost = field(11)
-            w_tm = jnp.swapaxes(blk, 0, 1)             # (seg, B, 4)
-            obs = jnp.concatenate([
-                x_new, w_tm[..., 0:3], (occ / 1000.0)[..., None]], axis=-1)
-            done = jnp.zeros((seg_len, batch), bool)
-            if seg_len == L:
-                done = done.at[-1].set(True)
-            ts = TimeStep(
-                obs=obs, reward=reward, terminated=done, truncated=done,
-                info={"zone_temperature": x_new,
-                      "comfort_level": -comfort_cost,
-                      "power_consumption": -power_cost})
-
-            if seg_len == L:
-                # autoreset splice, same derivation as batch_unroll:
-                # key_t -> (act, env) -> per-env keys -> (step, reset)
-                _, key_env = jax.random.split(keys[t0 + seg_len - 1])
-                bkeys = jax.random.split(key_env, batch)
-                reset_keys = jax.vmap(
-                    lambda k: jax.random.split(k)[1])(bkeys)
-                e0 = jax.vmap(lambda k: jax.random.randint(
-                    k, (), 0, Tw - 1))(reset_keys)
-                row0 = params.exog[e0]
-                avg0 = _seq_sum(params.target, n) / n
-                occ0 = calc_occupower(avg0, row0[:, 3])
-                reset_obs = jnp.concatenate([
-                    jnp.broadcast_to(params.target, (batch, n)),
-                    row0[:, 0:3], (occ0 / 1000.0)[:, None]], axis=1)
-                ts = ts.replace(obs=ts.obs.at[-1].set(reset_obs))
-            parts.append(ts)
-            t0 += seg_len
-            seg_idx += 1
 
         if len(parts) == 1:
             return parts[0]

@@ -1,4 +1,4 @@
-"""CogenEnv: combined-cycle cogeneration dispatch, TPU-native."""
+"""CogenEnv: combined-cycle cogeneration dispatch as a batched JAX program."""
 from __future__ import annotations
 
 from .env import (ACTION_KEYS, BINARY_IDX, CogenEnv, CogenParams, CogenState,

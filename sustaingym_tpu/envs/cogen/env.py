@@ -5,7 +5,7 @@ Semantics mirror the reference CogenEnv
 Dict action of 15 components (3x GT power/switches/steam + ST power +
 condenser flow + cooling bays); obs = time + previous action + 7 noisy
 forecast channels; reward = -(fuel + ramp + non-delivery + dynamic
-constraint violations). TPU-first redesign:
+constraint violations). Redesigned for batched accelerators:
 
 - actions/observations are flat fixed-shape arrays (Dict adapters live in
   ``sustaingym_tpu.compat``), so the whole step is one fused XLA program;
@@ -61,9 +61,8 @@ class CogenParams:
     # the same pack channel-major and flattened, (n_days, 7 * (96 + h + 1)):
     # the generic (vmapped) step gathers ONE wide day row from here and
     # extracts the now-row/forecast window with exact one-hot time
-    # contracts — gathering (day, t)-indexed slabs from ``ambients`` pads
-    # the 7-wide minor dim to the 128-lane tile (profiled at 59% of a
-    # cogen PPO train step)
+    # contracts instead of gathering (day, t)-indexed 7-wide slabs from
+    # ``ambients`` per env (H100 cost of either form not measured)
     ambients_cm: jax.Array
     ramp_penalty: jax.Array
     supply_imbalance_penalty: jax.Array
@@ -82,10 +81,9 @@ class CogenState:
     # the episode's channel-major ambient day slab (7, 96+H+1), gathered
     # ONCE at reset and ROLLED one column left per step so that column 0 is
     # always the current time: the now-row and the (h+1)-wide forecast
-    # window become STATIC slices. The previous design re-gathered the wide
-    # day row per env per step and extracted windows with one-hot einsum
-    # contracts — together 7.4ms of a 29.6ms PPO train step (xprof round
-    # 4); the roll is a 2.8KB contiguous copy per env per step instead.
+    # window become STATIC slices instead of a per-env, per-step gather of
+    # the wide day row; the roll is a 2.8KB contiguous copy per env per
+    # step.
     slab: jax.Array
 
 
@@ -150,10 +148,8 @@ def dyn_constraint_violation(x: jax.Array, y: jax.Array) -> jax.Array:
 class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
     name = "cogen"
     # NOTE: with the rolled state slab, reset is the expensive side (wide
-    # ambients_cm day gather) and the step is cheap — the gated autoreset
-    # (core.env.autoreset_vstep default) measured 11-12M vs 10.4M ungated
-    # PPO env-steps/s. (Before the slab moved into the state the tradeoff
-    # pointed the other way: 7.6M ungated vs 6.0M gated.)
+    # ambients_cm day gather) and the step is cheap, which is the case the
+    # gated autoreset (core.env.autoreset_vstep default) is for.
 
     # ---- seeding --------------------------------------------------------
     @staticmethod
@@ -206,8 +202,7 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
         """(H+1, 7) forecast slice with iid Gaussian noise on future rows
         (env.py:145-162). ``slab`` is (7, rows) aligned so column 0 is the
         current time — the window is a static slice, and the noise lands
-        via concatenate (the .at[1:].add scatter measured 3ms/step on the
-        PPO rollout)."""
+        via concatenate instead of an .at[1:].add scatter."""
         h = params.forecast_horizon
         window = jnp.swapaxes(slab[..., :h + 1], -1, -2)   # (h+1, 7)
         noise = params.forecast_noise_std * jax.random.normal(
@@ -323,14 +318,14 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
         per-step ambient gathers.
 
         Each env's whole padded day (96+H+1 rows) is fetched once per episode
-        with the Pallas slice-gather kernel and scanned time-major; per step
+        with one contiguous slice per env and scanned time-major; per step
         the forecast window is a scalar-indexed dynamic_slice (contiguous,
         no gather). Same PRNG stream as the generic path for resets and
         actions; forecast noise is drawn as one batched normal per step
         instead of per-env streams (identical distribution; exact-equality
         parity holds when ``forecast_noise_std == 0``, the default).
         """
-        from ...ops.pallas import episode_slice_gather
+        from ...ops.gather import episode_slice_gather
 
         L = params.timesteps_per_day
         h = params.forecast_horizon
@@ -405,155 +400,6 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
                     lambda o, r: o.at[-1].set(r), traj.obs, obs))
             parts.append(traj)
             t0 += seg_len
-
-        if len(parts) == 1:
-            return parts[0]
-        return jax.tree.map(lambda *xs: jnp.concatenate(xs, axis=0), *parts)
-
-    def fused_rollout(self, params: CogenParams, key: jax.Array, batch: int,
-                      num_steps: int, actions: jax.Array | None = None,
-                      il: int = 4, width: int = 128,
-                      interpret: bool = False) -> TimeStep:
-        """Maximum-throughput rollout: whole dispatch days inside one Pallas
-        kernel per env tile (ops/pallas/cogen_rollout.py) — the plant
-        surrogate unrolled over the three gas turbines as lane-row ops.
-
-        Policy: U over the flat action space (Box components uniform,
-        Bernoulli switches, integer bays — sample_action's distribution) on
-        the on-core PRNG; ``actions`` (num_steps, batch, 15) backs parity
-        tests. Requires noiseless forecasts (the default) and
-        batch % (il*width) == 0; falls back to :meth:`batch_unroll`.
-        """
-        from ...ops.pallas import episode_slice_gather
-        from ...ops.pallas.cogen_rollout import fused_cogen_segment
-
-        tile = il * width
-        try:
-            noiseless = float(params.forecast_noise_std) == 0.0
-        except (TypeError, jax.errors.TracerArrayConversionError):
-            noiseless = False
-        on_tpu = jax.devices()[0].platform == "tpu"
-        if (batch % tile != 0 or not noiseless
-                or params.ambients.dtype != jnp.float32
-                or not (on_tpu or interpret)):
-            if actions is not None:
-                raise ValueError("fused_rollout with explicit actions "
-                                 "requires a supported config")
-            from ...core.rollout import random_policy
-            return self.batch_unroll(params, random_policy(self, params,
-                                                           batch), None,
-                                     key, batch, num_steps)
-
-        L = params.timesteps_per_day
-        h = params.forecast_horizon
-        day_rows = L + h + 1
-        nb = batch // tile
-        flat_amb = params.ambients.reshape(-1, params.ambients.shape[-1])
-        nchan = params.ambients.shape[-1]           # 7
-
-        consts = jnp.zeros((40, width), jnp.float32)
-        consts = consts.at[0:15].set(
-            jnp.broadcast_to(jnp.asarray(ACTION_LOW, jnp.float32)[:, None],
-                             (15, width)))
-        consts = consts.at[16:31].set(
-            jnp.broadcast_to(jnp.asarray(ACTION_HIGH, jnp.float32)[:, None],
-                             (15, width)))
-        consts = consts.at[32].set(params.ramp_penalty)
-        consts = consts.at[33].set(params.supply_imbalance_penalty)
-        consts = consts.at[34].set(params.constraint_violation_penalty)
-
-        key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, batch)
-        states, ts0 = jax.vmap(self.reset, in_axes=(None, 0))(
-            params, init_keys)
-        days = states.day
-        prev = states.prev_action                    # (B, 15)
-        keys = jax.random.split(key_scan, num_steps)
-        dummy_acts = jnp.zeros((1, 1, 1, 16, width), jnp.float32)
-
-        def pack_rows(v, rows):
-            """(B, rows<=pad) -> (nb, il, pad, width) lane-major."""
-            pad = jnp.zeros((batch, rows), jnp.float32).at[:, :v.shape[1]
-                                                           ].set(v)
-            return jnp.transpose(pad.reshape(nb, il, width, rows),
-                                 (0, 1, 3, 2))
-
-        parts = []
-        t0 = 0
-        seg_idx = 0
-        while t0 < num_steps:
-            seg_len = min(L, num_steps - t0)
-            blk = episode_slice_gather(
-                flat_amb, days * day_rows, day_rows)  # (B, day_rows, 7)
-            blk8 = jnp.concatenate([
-                blk, jnp.zeros(blk.shape[:2] + (8 - nchan,), blk.dtype)],
-                axis=-1)
-            wx = jnp.transpose(
-                blk8.reshape(nb, il, width, day_rows, 8), (0, 1, 3, 4, 2))
-            prev0 = pack_rows(jnp.asarray(prev, jnp.float32), 16)
-            if actions is None:
-                acts_k = dummy_acts
-                seed = jax.random.randint(
-                    jax.random.fold_in(key_scan, seg_idx), (), 0, 2 ** 31 - 1)
-            else:
-                a = jnp.asarray(actions[t0:t0 + seg_len], jnp.float32)
-                a16 = jnp.zeros((seg_len, batch, 16),
-                                jnp.float32).at[:, :, :15].set(a)
-                acts_k = jnp.transpose(
-                    a16.reshape(seg_len, nb, il, width, 16), (1, 2, 0, 4, 3))
-                seed = jnp.zeros((), jnp.int32)
-            out = fused_cogen_segment(consts, prev0, wx, acts_k, seed,
-                                      seg_len, il, width,
-                                      use_rng=actions is None,
-                                      interpret=interpret)
-
-            def rows(lo, hi, out=out, seg_len=seg_len):
-                y = jnp.transpose(out[:, :, :, lo:hi, :], (2, 0, 1, 4, 3))
-                return y.reshape(seg_len, batch, hi - lo)
-
-            act_tm = rows(0, 15)
-            reward = rows(16, 17)[..., 0]
-            info = {
-                "fuel_costs": rows(17, 20),
-                "ramp_costs": rows(20, 24),
-                "dyn_cv_costs": rows(24, 28),
-                "non_delivery_cost": rows(28, 29)[..., 0],
-                "net_power": rows(29, 30)[..., 0],
-                "proc_steam": rows(30, 31)[..., 0],
-            }
-            # obs at t+1: forecast windows from the ambient block
-            amb_tm = jnp.swapaxes(blk, 0, 1)          # (day_rows, B, 7)
-            fore = jnp.stack([amb_tm[1 + k:1 + k + seg_len]
-                              for k in range(h + 1)], axis=2)
-            # (seg, B, h+1, 7)
-            t_idx = (jnp.arange(seg_len, dtype=jnp.float32) + 1.0) / L
-            obs = {"Time": jnp.broadcast_to(
-                t_idx[:, None, None], (seg_len, batch, 1)),
-                "Prev_Action": act_tm}
-            for i, name in enumerate(FORECAST_KEYS):
-                obs[name] = fore[..., i]
-            done = jnp.zeros((seg_len, batch), bool)
-            if seg_len == L:
-                done = done.at[-1].set(True)
-            ts = TimeStep(obs=obs, reward=reward, terminated=done,
-                          truncated=jnp.zeros((seg_len, batch), bool),
-                          info=info)
-
-            prev = act_tm[-1]
-            if seg_len == L:
-                _, key_env = jax.random.split(keys[t0 + seg_len - 1])
-                bkeys = jax.random.split(key_env, batch)
-                reset_keys = jax.vmap(
-                    lambda k: jax.random.split(k)[1])(bkeys)
-                states, ts_r = jax.vmap(self.reset, in_axes=(None, 0))(
-                    params, reset_keys)
-                days = states.day
-                prev = states.prev_action
-                ts = ts.replace(obs=jax.tree.map(
-                    lambda o, r: o.at[-1].set(r), ts.obs, ts_r.obs))
-            parts.append(ts)
-            t0 += seg_len
-            seg_idx += 1
 
         if len(parts) == 1:
             return parts[0]

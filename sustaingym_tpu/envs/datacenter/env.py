@@ -59,9 +59,8 @@ class DCState:
     running: jax.Array     # executed load last hour (d_t)
     day_vcc_sum: jax.Array   # sum of VCC over current day
     day_arrivals: jax.Array  # job-hours enqueued over current day
-    # the episode's month rows, gathered ONCE at reset: the generic step
-    # re-gathered both rows per env per step (4096 envs x 2.8KB x 64 steps
-    # = 28% of a PPO train step, xprof round 4); they only change at reset
+    # the episode's month rows, gathered ONCE at reset instead of per env
+    # per step (4096 envs x 2.8KB x 64 steps); they only change at reset
     arr_slab: jax.Array    # (672,) this month's arrival row
     moer_slab: jax.Array   # (696,) this month's MOER row
 
@@ -149,10 +148,8 @@ class DataCenterEnv(FunctionalEnv[DCParams, DCState]):
     @staticmethod
     def _slab_window(slab: jax.Array, start, length: int) -> jax.Array:
         """(length,) window of a per-env (..., R) slab via an exact one-hot
-        time contract (each output is one 1.0 * v product). Replaces
-        vmapped dynamic_slice / scalar indexing, whose per-env gathers pad
-        to the 128-lane tile — the same narrow-gather poison profiled on
-        the building/cogen generic paths."""
+        time contract (each output is one 1.0 * v product) in place of a
+        vmapped dynamic_slice / scalar index per env."""
         R = slab.shape[-1]
         w = (jnp.asarray(start, jnp.int32)[..., None, None]
              + jnp.arange(length)[:, None] == jnp.arange(R)[None, :])
@@ -226,11 +223,11 @@ class DataCenterEnv(FunctionalEnv[DCParams, DCState]):
     def batch_unroll(self, params: DCParams, policy, policy_params,
                      key: jax.Array, batch: int, num_steps: int) -> TimeStep:
         """Fused lockstep rollout: one per-episode prefetch of each env's
-        packed [arrivals, moer] month table (Pallas slice gather) instead of
+        packed [arrivals, moer] month table (one contiguous slice) instead of
         a full 696-wide MOER row gather per env per step. Same PRNG stream
         as the generic path (exact parity — the env is deterministic given
         the reset stream)."""
-        from ...ops.pallas import episode_slice_gather
+        from ...ops.gather import episode_slice_gather
 
         L = EPISODE_LEN
         rows = params.moer.shape[1]               # 696 = L + FORECAST_H
@@ -279,113 +276,6 @@ class DataCenterEnv(FunctionalEnv[DCParams, DCState]):
                 traj = traj.replace(obs=traj.obs.at[-1].set(obs))
             parts.append(traj)
             t0 += seg_len
-
-        if len(parts) == 1:
-            return parts[0]
-        return jax.tree.map(lambda *xs: jnp.concatenate(xs, axis=0), *parts)
-
-    def fused_rollout(self, params: DCParams, key: jax.Array, batch: int,
-                      num_steps: int, actions: jax.Array | None = None,
-                      il: int = 8, width: int = 128,
-                      interpret: bool = False) -> TimeStep:
-        """Maximum-throughput rollout: whole episode segments inside one
-        Pallas kernel per env tile (ops/pallas/dc_rollout.py). Semantics of
-        :meth:`batch_unroll` with the policy drawn U(0,1) from the on-core
-        PRNG (counter-based stream; ``actions`` (num_steps, batch, 1) backs
-        the parity tests). Requires batch % (il*width) == 0; falls back to
-        :meth:`batch_unroll` otherwise."""
-        from ...ops.pallas import episode_slice_gather
-        from ...ops.pallas.dc_rollout import fused_dc_segment
-
-        tile = il * width
-        on_tpu = jax.devices()[0].platform == "tpu"
-        if (batch % tile != 0 or params.moer.dtype != jnp.float32
-                or not (on_tpu or interpret)):
-            if actions is not None:
-                raise ValueError("fused_rollout with explicit actions "
-                                 "requires batch % (il*width) == 0")
-            from ...core.rollout import random_policy
-            return self.batch_unroll(params, random_policy(self, params,
-                                                           batch), None,
-                                     key, batch, num_steps)
-
-        L = EPISODE_LEN
-        rows = params.moer.shape[1]
-        nb = batch // tile
-        arr_pad = jnp.pad(params.arrivals,
-                          ((0, 0), (0, rows - params.arrivals.shape[1])))
-        flat = jnp.stack([arr_pad, params.moer], axis=-1).reshape(-1, 2)
-
-        key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, batch)
-        months = jax.vmap(
-            lambda k: jax.random.randint(k, (), 0, params.n_months)
-        )(init_keys)
-        keys = jax.random.split(key_scan, num_steps)
-        dummy_acts = jnp.zeros((1, 1, 1, 1, width), jnp.float32)
-
-        parts = []
-        t0 = 0
-        seg_idx = 0
-        while t0 < num_steps:
-            seg_len = min(L, num_steps - t0)
-            blk = episode_slice_gather(flat, months * rows, rows)  # (B,rows,2)
-            wx = jnp.transpose(
-                blk[:, :seg_len].reshape(nb, il, width, seg_len, 2),
-                (0, 1, 3, 4, 2))
-            if actions is None:
-                acts_k = dummy_acts
-                seed = jax.random.randint(
-                    jax.random.fold_in(key_scan, seg_idx), (), 0, 2 ** 31 - 1)
-            else:
-                a1 = jnp.asarray(actions[t0:t0 + seg_len],
-                                 jnp.float32).reshape(seg_len, batch, 1)
-                acts_k = jnp.transpose(
-                    a1.reshape(seg_len, nb, il, width, 1), (1, 2, 0, 4, 3))
-                seed = jnp.zeros((), jnp.int32)
-            out = fused_dc_segment(wx, acts_k, seed, seg_len, il, width,
-                                   use_rng=actions is None,
-                                   interpret=interpret)
-
-            def field(r, out=out, seg_len=seg_len):
-                return jnp.transpose(out[:, :, :, r, :],
-                                     (2, 0, 1, 3)).reshape(seg_len, batch)
-
-            a_t = field(0)
-            executed = field(1)
-            queue = field(2)
-            reward = field(3)
-            carbon = field(4)
-            delay = field(5)
-            # obs: [prev_a, executed, n_waiting, 24h moer forecast]
-            moer_tm = jnp.swapaxes(blk[..., 1], 0, 1)       # (rows, B)
-            fc = jnp.stack([moer_tm[1 + k:1 + k + seg_len]
-                            for k in range(FORECAST_H)], axis=-1)
-            obs = jnp.concatenate([
-                a_t[..., None], executed[..., None],
-                (queue / AVG_JOB_SIZE)[..., None], fc], axis=-1)
-            done = jnp.zeros((seg_len, batch), bool)
-            if seg_len == L:
-                done = done.at[-1].set(True)
-            ts = TimeStep(obs=obs, reward=reward, terminated=done,
-                          truncated=jnp.zeros((seg_len, batch), bool),
-                          info={"carbon_cost": carbon,
-                                "delay_penalty": delay,
-                                "queue": queue, "executed": executed})
-
-            if seg_len == L:
-                # autoreset splice (batch_unroll key derivation)
-                _, key_env = jax.random.split(keys[t0 + seg_len - 1])
-                bkeys = jax.random.split(key_env, batch)
-                reset_keys = jax.vmap(
-                    lambda k: jax.random.split(k)[1])(bkeys)
-                states, ts_r = jax.vmap(self.reset, in_axes=(None, 0))(
-                    params, reset_keys)
-                months = states.month
-                ts = ts.replace(obs=ts.obs.at[-1].set(ts_r.obs))
-            parts.append(ts)
-            t0 += seg_len
-            seg_idx += 1
 
         if len(parts) == 1:
             return parts[0]

@@ -8,7 +8,7 @@ no reference code exists — registration commented out at
   one 80 MWh battery (the agent) submitting charge/discharge price bids for
   the next k settlement intervals;
 - every 5-min step the market operator clears a multi-interval SCED
-  (ops/lp.py PDHG kernel — batched, fixed iterations, prices = equality
+  (ops/lp.py PDHG solver — batched, fixed iterations, prices = equality
   duals), producing the clearing price p_t and the agent dispatch x_t;
   the cold first solve of an episode runs ``lp_iters`` PDHG iterations,
   warm-started subsequent solves run ``lp_warm_iters`` (the previous
@@ -52,6 +52,14 @@ TAU_H = 1.0 / 12.0
 P_CO2 = 30.85 / 1000.0     # $/kg CO2 (EV env carbon price, env.py:107)
 MAX_BID = 1000.0           # $/MWh cap on battery bids
 
+# precision of the SCED solver's matrix products (ops/lp.py modes), the
+# same on every backend: TF32, the faster mode whose clearing prices pass
+# every check of sustaingym_tpu.checks on the H100 (on an H100 80GB HBM3
+# at 400 W: 1.70 ms vs 2.21 ms per 40-iteration solve at batch 4096, mean
+# price drift vs full float32 $0.005/MWh; CHANGES.md). On a CPU the mode
+# computes in full float32.
+LP_MATMUL = "tf32"
+
 # 3-action discretization (charge / do nothing / discharge) as
 # (charge_bid, discharge_bid) pairs: charging is guaranteed economic at a
 # MAX_BID willingness-to-pay, discharging at a zero ask; MAX_BID asks and
@@ -73,9 +81,7 @@ class MarketParams:
     load: jax.Array         # (n_days, 289 + k) MW system load (padded)
     moer: jax.Array         # (n_days, 289, 37) kg CO2 / kWh
     # cols [0:k+1] of each day's MOER table, flattened row-major to ONE
-    # wide row per day — the state slab gathers/rolls this layout (a
-    # (289, k+1) slab's 5-wide minor dim pads to the 128-lane tile: the
-    # first slab attempt measured 1.9M vs 3.1M steps/s from exactly that)
+    # wide row per day — the state slab gathers/rolls this layout
     moer_kflat: jax.Array   # (n_days, 289 * (k + 1))
     # warm-start shift permutations: each step moves the SCED horizon one
     # interval, so the previous solution warm-starts best with its per-tau
@@ -117,9 +123,8 @@ class MarketState:
     warm_z: jax.Array       # (mi,)
     # the episode's exogenous day rows, gathered ONCE at reset and ROLLED
     # one position per step so the current load window / MOER row are
-    # STATIC slices — the per-(env, step) vmapped dynamic_slice gathers
-    # were 27% of a batched rollout (round-4 xprof, same pattern as the
-    # DC/cogen state slabs)
+    # STATIC slices instead of per-(env, step) dynamic_slice gathers
+    # (same pattern as the DC/cogen state slabs)
     load_slab: jax.Array    # (289 + k,) this day's load row
     moer_slab: jax.Array    # (289 * (k+1),) flattened MOER cols [0:k+1]
 
@@ -161,14 +166,9 @@ def make_params(month: str = "2021-05",
                 # charge / do nothing / discharge -> DISCRETE_BIDS
                 discrete: bool = False,
                 moer_ba: str = "SGIP_CAISO_PGE",
-                # bf16 matmul inputs (f32 accumulation) for the PDHG
-                # matvecs: 2x the MXU rate; clearing-price error vs the f32
-                # solve is well under the solver's own tolerance
-                # (test_lp_bf16_prices). None (default) resolves per
-                # backend: True on TPU (where the MXU rate doubles), False
-                # elsewhere (CPU users would pay the precision cost for no
-                # speedup — round-2 advisor finding)
-                lp_bf16: bool | None = None,
+                # precision of the PDHG matrix products: "f32" (full
+                # float32) or "tf32" (ops/lp.py); default LP_MATMUL
+                lp_matmul: str = LP_MATMUL,
                 # PDHG over-relaxation (ops/lp.py relax): measured NO
                 # gain on this geometry (1.8 tracked worse at every warm
                 # budget) — kept for completeness, default off
@@ -180,18 +180,13 @@ def make_params(month: str = "2021-05",
                 # warm=60@0.5 ($0.20) within the flat-200 baseline's
                 # tolerance at 1.5x fewer iterations
                 lp_precond_alpha: float = 0.35,
-                # merged [A; S] PDHG matmuls (ops/lp.py merge_blocks).
-                # Round-5 NEGATIVE result: measured 5.59M vs 5.90M
-                # env-steps/s with the separate blocks at batch 4096 on
-                # one v5e — the per-iteration dual concat costs more than
-                # the two tiny (me=4) matvecs it removes. Kept as an
-                # option for other geometries; default off
+                # merged [A; S] PDHG matmuls (ops/lp.py merge_blocks):
+                # one matmul per direction instead of one per block, at
+                # the price of a per-iteration dual concat. Default off;
+                # its H100 cost is not measured
                 lp_merge: bool = False,
                 dtype=jnp.float32) -> MarketParams:
     from ...data.ev_etl import build_moer_pack
-
-    if lp_bf16 is None:
-        lp_bf16 = jax.default_backend() == "tpu"
 
     y, m = (int(s) for s in month.split("-"))
     first = dt.date(y, m, 1)
@@ -207,7 +202,7 @@ def make_params(month: str = "2021-05",
     op = lp.make_lp_operator(
         mats["A"], np.zeros((0, mats["A"].shape[1])), iters=lp_iters,
         dtype=dtype, sym=mats["S"],
-        matmul_dtype=jnp.bfloat16 if lp_bf16 else None,
+        matmul=lp_matmul,
         relax=lp_relax, precond_alpha=lp_precond_alpha,
         merge_blocks=lp_merge)
     load = _synthesize_load(n_days, m)
@@ -291,9 +286,8 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
     def _sced_problem(self, params: MarketParams, state: MarketState,
                       action: jax.Array):
         """Per-env SCED problem data (c, b, h, warm init) for the current
-        step — the solve itself is separable so the lockstep
-        :meth:`batch_unroll` can run it through the whole-solve Pallas
-        kernel (ops/pallas/lp_solve.py) in one launch per step."""
+        step — separate from the solve so the lockstep :meth:`batch_unroll`
+        can run one batched solve per step."""
         k = params.horizon
         action = jnp.asarray(action, params.load.dtype)
         a_charge = action[:k]
@@ -434,48 +428,15 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
 
         The win: episodes are lockstep, so the cold/warm PDHG budget is a
         PYTHON-static property of the scan position (episode step 0 cold,
-        rest warm) instead of a traced per-env ``where`` — which lets the
-        whole warm solve run through the Pallas whole-solve kernel
-        (ops/pallas/lp_solve.py: ALL iterations in one launch; the XLA
-        loop's ~12 launches per iteration made the market
-        launch-overhead-bound at ~10% MXU). Off-TPU (or at non-128
-        batches) the batched XLA solver runs instead — same math.
+        rest warm) instead of a traced per-env ``where``: each step runs
+        one batched solve with a static iteration count.
         """
         L = T_STEPS
-        on_tpu = jax.devices()[0].platform == "tpu"
-        # the kernel hardcodes plain (rho=1) iterations with bf16 matmul
-        # inputs — only substitute it when the operator is configured with
-        # exactly that math (the configuration the parity test pins);
-        # non-default lp_relax / lp_bf16=False keep the XLA solver so
-        # train and eval always compute the same iteration
-        use_pallas = (on_tpu and batch % 128 == 0 and params.op.mg == 0
-                      and params.op.relax == 1.0
-                      and params.op.matmul_dtype == jnp.bfloat16)
         op = params.op
-        n, me, ms = op.n, op.me, op.ms
-        lb_b = jnp.zeros((batch, n), params.load.dtype)
-        ub_b = jnp.broadcast_to(params.ub, (batch, n))
-        if use_pallas:
-            from ...ops.pallas.lp_solve import (_pad8, pack_pdhg_operands,
-                                                pdhg_solve_paired)
-            kops = pack_pdhg_operands(op)
-            w = min(2048, batch)
-            while batch % w:
-                w //= 2
-            Np = _pad8(n)
-            ub_k = jnp.zeros((batch, Np), params.load.dtype
-                             ).at[:, :n].set(ub_b)
-            ub_k = jnp.transpose(
-                ub_k.reshape(batch // w, w, Np), (0, 2, 1))
+        lb_b = jnp.zeros((batch, op.n), params.load.dtype)
+        ub_b = jnp.broadcast_to(params.ub, (batch, op.n))
 
         def batched_solve(c, b, h, init, iters):
-            if use_pallas:
-                x, y, zp, zm = pdhg_solve_paired(
-                    kops, c, b, h[:, :ms], h[:, ms:2 * ms], ub_k,
-                    init.x, init.y, init.z[:, :ms], init.z[:, ms:2 * ms],
-                    dims=(n, me, ms), iters=iters, w=w)
-                return lp.LPSolution(
-                    x=x, y=y, z=jnp.concatenate([zp, zm], axis=-1))
             return lp.solve_lp(op, c, b, h, lb_b, ub_b, init=init,
                                iters=iters)
 

@@ -1,4 +1,4 @@
-"""EVChargingEnv: ACN charging-network simulation, TPU-native."""
+"""EVChargingEnv: ACN charging-network simulation as a batched JAX program."""
 from __future__ import annotations
 
 from .env import (EVChargingEnv, EVParams, EVState, battery_charge,

@@ -5,8 +5,8 @@ Rebuilds the reference EVChargingEnv
 the ACN-Sim digital twin (Simulator / ChargingNetwork / Linear2StageBattery /
 EventQueue, env.py:324-328) becomes fixed-size station-slot arrays advanced
 by a pure step function, and the per-step MOSEK projection (env.py:200-221)
-becomes a batched fixed-iteration dual-FISTA kernel (ops/qp.py) running on
-the MXU.
+becomes a batched fixed-iteration dual-FISTA solver (ops/qp.py): a few
+skinny matrix products per iteration over the whole env batch.
 
 Per step (5 simulated minutes):
  1. optional action projection onto the network feasible set;
@@ -64,7 +64,7 @@ class EVParams:
     day_num_evs: jax.Array     # (n_days,) int32
     # packed per-(day, t) step table: [plug_dep(n), plug_est(n), plug_req(n),
     # moer_row(t+1)(37), max_profit, num_evs] — ONE row gather per step
-    # instead of five (TPU gather cost is per-index). The dense per-station
+    # instead of five. The dense per-station
     # plug-event grids exist only inside this pack (plug events keyed by
     # (day, t, station): dep/est/req, 0 = no arrival).
     step_table: jax.Array    # (n_days, 289, 3n + 39)
@@ -112,10 +112,10 @@ def make_params(site: str = "caltech",
 
     ``proj_method`` selects the feasibility-projection kernel:
     ``'dual'`` (default) is preconditioned dual-FISTA — ~4x fewer
-    flops/iteration than ADMM, robust at TPU DEFAULT (bf16) matmul
-    precision, and more accurate vs the exact (MOSEK-equivalent)
-    projection; ``'admm'`` is the legacy over-relaxed ADMM operator
-    (float32-pinned matmuls), kept for the fused-kernel parity path.
+    flops/iteration than ADMM, robust to reduced-precision matmuls, and
+    more accurate vs the exact (MOSEK-equivalent) projection; ``'admm'``
+    is the legacy over-relaxed ADMM operator (float32-pinned matmuls),
+    kept for comparison.
     ``proj_iters`` defaults per method (15 dual / 30 admm)."""
     from ...data.ev_etl import build_moer_pack, build_trace_pack
     spec: SiteSpec = load_site(site)
@@ -138,8 +138,7 @@ def make_params(site: str = "caltech",
         # 15 iterations: max error vs the float64 exact projection ~0.014
         # (stress battery ~0.02), quantized-pilot mismatch 0.04% — an
         # order of magnitude tighter than the legacy ADMM-30 operator's
-        # honest accuracy (~0.05 max err), at 47M projected env-steps/s
-        # on one v5e chip (tools/fista_tune.py, BENCH_r03)
+        # accuracy (~0.05 max err; tools/fista_tune.py)
         proj = qp.make_dual_soc_projection(
             spec.constraint_matrix, spec.phase_angles, spec.magnitudes,
             action_scale=ACTION_SCALE_FACTOR,
@@ -261,13 +260,12 @@ def _lockstep_ev_unroll(params: EVParams, reset_fn, reset_at_day_fn,
     width = params.step_table.shape[2]
     flat_table = params.step_table.reshape(-1, width)
     n_days = params.n_days
-    # row-fetch strategy: a (B,)-row gather reads ~1KB per index and
-    # profiles at ~60us/step (18% of the projected rollout); with few
-    # distinct days the same rows come from ONE MXU matmul,
-    # onehot(days) @ table[t], which is EXACT at HIGHEST precision
-    # (each output element is a single 1.0 * v product) and ~3x
-    # faster. Falls back to the gather for large day banks (GMM
-    # traces) where the (B, n_days) matmul stops being cheap.
+    # row-fetch strategy: with few distinct days the (B,) step-table rows
+    # come from ONE matmul, onehot(days) @ table[t], which is EXACT at
+    # HIGHEST precision (each output element is a single 1.0 * v
+    # product); large day banks (GMM traces) gather rows instead, where
+    # the (B, n_days) matmul stops being cheap. Which of the two is faster
+    # on the H100 at the real day bank is not measured.
     use_onehot = n_days <= 128
     if use_onehot:
         table_tm = jnp.swapaxes(params.step_table, 0, 1)  # (289, D, W)
@@ -416,8 +414,12 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         #    post-increment timestep t+1
         total_rate = jnp.sum(rates)
         profit = PROFIT_FACTOR * total_rate
-        agg_re = params.constraint_re @ pilots
-        agg_im = params.constraint_im @ pilots
+        # reward accounting in full float32: a TF32 product would shift
+        # the excess-current penalty by ~1e-3 relative
+        agg_re = jnp.matmul(params.constraint_re, pilots,
+                            precision=jax.lax.Precision.HIGHEST)
+        agg_im = jnp.matmul(params.constraint_im, pilots,
+                            precision=jax.lax.Precision.HIGHEST)
         current_mag = jnp.sqrt(agg_re ** 2 + agg_im ** 2)
         excess = jnp.sum(jax.nn.relu(current_mag - params.magnitudes))
         excess_charge = excess * VIOLATION_FACTOR
@@ -456,10 +458,7 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         """Boundary-step reset days, bit-identical to what the generic
         ``core.autoreset_step`` path draws: the step's env key splits into
         per-env keys, each env's key splits into (step, reset), and
-        ``reset`` maps its key to a uniform day. Shared by
-        :meth:`batch_unroll` and :meth:`fused_rollout` so the two fast
-        paths cannot drift apart from the documented PRNG-parity
-        contract."""
+        ``reset`` maps its key to a uniform day."""
         bkeys = jax.random.split(key_env, batch)
         reset_keys = jax.vmap(lambda k: jax.random.split(k)[1])(bkeys)
         return jax.vmap(lambda k: jax.random.randint(
@@ -481,10 +480,8 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         (discarded on every non-boundary step — a fresh zero-state + obs
         build + moer gather + tree-select over every TimeStep leaf) happens
         only at the actual episode boundary, once per MAX_TIMESTEP steps.
-        The (day, t) row stays a per-step gather feeding compute directly:
-        a prefetch-whole-segment variant was measured SLOWER (the staged
-        (seg, B, 203) block costs an extra HBM write+read+transpose, 13.5M
-        vs 22.5M env-steps/s at batch 16384 on one v5 chip).
+        The (day, t) row is fetched per step and feeds compute directly,
+        with no staged (seg, B, 203) block.
         """
         del prefetch  # kept for call-compat; segmenting follows episodes
         return _lockstep_ev_unroll(
@@ -495,350 +492,6 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
             day_of=lambda st: st.day,
             policy=policy, policy_params=policy_params, key=key,
             batch=batch, num_steps=num_steps)
-
-    def fused_rollout(self, params: EVParams, key: jax.Array, batch: int,
-                      num_steps: int, actions: jax.Array | None = None,
-                      w: int = 2048, force_kernel: bool = False,
-                      interpret: bool = False) -> TimeStep:
-        """Maximum-throughput rollout: whole episodes run inside one Pallas
-        kernel per w-env group (ops/pallas/ev_rollout.py), station state
-        VMEM-resident, the projection's matmuls on the MXU.
-
-        Measured at batch 16384 x 288 on one v5 chip (round 4, w=2048):
-        98.2M env-steps/s with projection OFF (XLA scan: 43.7M) and
-        62M WITH the default dual-FISTA projection — beating the XLA
-        lockstep path's 50M, where round 3's ADMM kernel lost 10M-vs-47M.
-        Two changes flipped it: the in-kernel preconditioned dual-FISTA
-        operator (~4x fewer flops/iteration than ADMM), and WIDE lane
-        groups (w=2048 with the wx table streamed in 36-step chunks):
-        at w=128 the 15 serialized FISTA iterations per step are pure
-        latency (20M); wide rows turn the same chain throughput-bound.
-        JPL (9 cones) runs in-kernel too via the 16-cone split layout
-        (round 3's 8-cone interleaved layout excluded it).
-
-        Semantics match :meth:`batch_unroll` except:
-        - ``obs`` is an empty dict — the simulation tier returns rewards +
-          info only (reconstructing Dict obs per step would triple the
-          output bytes for a consumer that never reads them; use
-          :meth:`batch_unroll` for policy-in-the-loop rollouts);
-        - with ``actions=None`` the kernel draws U[0, 1) station actions
-          from the on-core PRNG — the same distribution as
-          ``random_policy`` on a counter-based stream. Reset-day streams
-          reuse the jax.random derivation of :meth:`batch_unroll`, so
-          episode CONTENT is identically distributed.
-        With prescribed ``actions`` ((num_steps, batch, n), driven by the
-        parity tests) rewards/info match the XLA path to float tolerance.
-
-        Requires float32 params, batch % w == 0 (w auto-shrinks to the
-        batch in 128-lane multiples), at most 16 network cones (both
-        packaged sites fit), and a TPU (``interpret=True`` works only
-        with prescribed ``actions`` — the on-core PRNG has no interpret
-        lowering); falls back to :meth:`batch_unroll` otherwise when
-        ``actions`` is None. NOTE on numerics: the in-kernel dual-FISTA
-        honors the operator's ``restart`` flag but always runs the
-        x-chain in f32 (``inner_bf16`` is an XLA-path HBM optimization
-        with no in-kernel analogue), so kernel-vs-XLA outputs agree to
-        bf16-noise tolerance when the XLA operator uses its default
-        inner_bf16=True, and to float tolerance when inner_bf16=False
-        (the parity tests pin the latter).
-        """
-        on_tpu = jax.devices()[0].platform == "tpu"
-        # shrink the lane group to the batch, keeping it a 128-lane
-        # multiple (the kernel layouts assume full lane tiles; a
-        # non-multiple batch falls through the guard to batch_unroll)
-        w = min(w, max(128, (batch // 128) * 128))
-        dtype_ok = params.moer.dtype == jnp.float32
-        admm = isinstance(params.proj, qp.SOCProjection)
-        # round 4: the kernel implements BOTH projection operators. The
-        # dual-FISTA path runs by default (it beats the XLA lockstep path —
-        # see the class docstring numbers); the legacy ADMM stays
-        # opt-in via force_kernel/interpret for its parity tests.
-        proj_ok = not params.project_action or (not admm) or (
-            force_kernel or interpret)
-        # kernel layout holds 16 cones (32 interleaved rows) — covers
-        # caltech's 8 AND JPL's 9 (round 3's 16-row layout excluded JPL)
-        cones_ok = int(params.proj.C.shape[0]) <= 32
-        # the RNG path needs the on-core PRNG, which has no interpret-mode
-        # lowering: interpret runs require prescribed actions
-        platform_ok = on_tpu or (interpret and actions is not None)
-        # in-kernel day select streams a (chunk, 136, Dp) slab: cap the
-        # day-bank width (huge GMM banks fall back to batch_unroll's
-        # gather path, which already handles them)
-        days_ok = params.n_days <= 512
-        if not (batch % w == 0 and dtype_ok and proj_ok and cones_ok
-                and platform_ok and days_ok):
-            if actions is not None:
-                raise ValueError("fused_rollout with explicit actions "
-                                 "requires a supported config")
-            from ...core.rollout import random_policy
-            return self.batch_unroll(params, random_policy(self, params,
-                                                           batch), None,
-                                     key, batch, num_steps)
-
-        from ...ops.pallas.ev_rollout import (build_ev_operators,
-                                              fused_ev_segment)
-
-        n = params.n_stations
-        L = MAX_TIMESTEP
-        nb = batch // w
-        k_op, ct_op, c_op, consts = build_ev_operators(params, w)
-        # padded per-day wx table: [plug_dep(64) | plug_req(64) | moer0 | pad]
-        dep_t = params.step_table[:, :, :n]
-        req_t = params.step_table[:, :, 2 * n:3 * n]
-        moer0_t = params.step_table[:, :, 3 * n:3 * n + 1]
-
-        def pad_to(x, rows):
-            return jnp.pad(x, ((0, 0), (0, 0), (0, rows - x.shape[2])))
-
-        table = jnp.concatenate(
-            [pad_to(dep_t, 64), pad_to(req_t, 64), pad_to(moer0_t, 8)],
-            axis=2)                                  # (n_days, 289, 136)
-        D = params.n_days
-        Dp = -(-D // 128) * 128
-        slab = jnp.zeros((L, 136, Dp), jnp.float32)
-        slab = slab.at[:, :, :D].set(
-            jnp.transpose(table[:, :L], (1, 2, 0)))
-
-        key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, batch)
-        days = jax.vmap(lambda k: jax.random.randint(
-            k, (), 0, params.n_days))(init_keys)
-        keys = jax.random.split(key_scan, num_steps)
-
-        iters = int(params.proj.iters)
-        rho = float(params.proj.rho) if admm else 0.0
-        alpha = float(params.proj.alpha) if admm else 0.0
-        proj_method = "admm" if admm else "dual"
-        restart = bool(getattr(params.proj, "restart", True))
-
-        parts = []
-        t0 = 0
-        seg_idx = 0
-        while t0 < num_steps:
-            seg = min(L, num_steps - t0)
-            onehot = (days[:, None] == jnp.arange(Dp)[None, :]).astype(
-                jnp.float32)
-            onehot = jnp.transpose(
-                onehot.reshape(nb, w, Dp), (0, 2, 1))   # (nb, Dp, w)
-            if actions is None:
-                acts = jnp.zeros((1, 1, 1, w), jnp.float32)
-                seed = jax.random.randint(
-                    jax.random.fold_in(key_scan, seg_idx), (),
-                    0, 2 ** 31 - 1)
-                use_rng = True
-            else:
-                a = jnp.asarray(actions[t0:t0 + seg], jnp.float32)
-                a64 = jnp.zeros((seg, batch, 64),
-                                jnp.float32).at[:, :, :n].set(a)
-                acts = jnp.transpose(
-                    a64.reshape(seg, nb, w, 64), (1, 0, 3, 2))
-                seed = jnp.zeros((), jnp.int32)
-                use_rng = False
-            out = fused_ev_segment(
-                k_op, ct_op, c_op, consts, slab[:seg], onehot, acts, seed,
-                seg, n, w, iters, rho, alpha, bool(params.project_action),
-                proj_method, restart, use_rng, interpret=interpret)
-
-            def field(i):
-                return jnp.transpose(
-                    out[:, :, i, :], (1, 0, 2)).reshape(seg, batch)
-
-            reward = field(0)
-            done = jnp.zeros((seg, batch), bool)
-            if seg == L:
-                done = done.at[-1].set(True)
-            info = {
-                "profit": field(1),
-                "carbon_cost": field(2),
-                "excess_charge": field(3),
-                "max_profit": jnp.broadcast_to(
-                    params.day_max_profit[days], (seg, batch)),
-                "num_evs": jnp.broadcast_to(
-                    params.day_num_evs[days], (seg, batch)),
-            }
-            ts = TimeStep(obs={}, reward=reward, terminated=done,
-                          truncated=jnp.zeros_like(done), info=info)
-            parts.append(ts)
-
-            if seg == L:
-                # autoreset day resampling, same derivation as batch_unroll
-                _, key_env = jax.random.split(keys[t0 + seg - 1])
-                days = self._autoreset_days(params, key_env, batch)
-            t0 += seg
-            seg_idx += 1
-
-        if len(parts) == 1:
-            return parts[0]
-        return jax.tree.map(lambda *xs: jnp.concatenate(xs, axis=0), *parts)
-
-    def fused_layout(self, params: EVParams) -> dict:
-        """Static learner-block layout for :meth:`fused_policy_unroll`
-        consumers (parallel.ppo builds its permuted trunk1 view from
-        this)."""
-        from ...ops.pallas.ev_rollout import ev_fused_layout
-        return ev_fused_layout(params.n_stations)
-
-    def fused_policy_unroll_supported(self, params: EVParams, batch: int
-                                      ) -> bool:
-        """Static gate for :meth:`fused_policy_unroll` (parallel.ppo keys
-        off this): f32 params, dual-FISTA projection operator, 128-lane
-        batch, and a real TPU backend (the kernel has no interpret-mode
-        PRNG)."""
-        return (params.moer.dtype == jnp.float32
-                and not isinstance(params.proj, qp.SOCProjection)
-                and int(params.proj.C.shape[0]) <= 32
-                and params.n_stations <= 64
-                and batch % 128 == 0
-                and jax.devices()[0].platform == "tpu"
-                # multi-device meshes would need the pallas_call wrapped
-                # in shard_map (untestable on this 1-chip host): the
-                # learner falls back to the XLA episodic path there
-                and jax.device_count() == 1)
-
-    def fused_policy_unroll(self, params: EVParams, policy: dict,
-                            key: jax.Array, batch: int, num_steps: int,
-                            w: int = 1024, noise: jax.Array | None = None,
-                            interpret: bool = False) -> dict:
-        """Policy-in-kernel fused episode rollout for the PPO learner
-        (round-4 verdict item 1): the 2-layer tanh actor samples actions
-        INSIDE the Pallas episode kernel (ops/pallas/ev_rollout.py
-        policy-mode block), replacing the XLA lockstep rollout whose
-        per-step policy dispatch + obs flattening round-trip HBM. Matches
-        the learner-feeding role of the reference's RLLib rollout workers
-        (/root/reference/examples/evcharging/train_rllib.py:138-164).
-
-        ``policy`` is a parallel.ppo actor pytree (trunk1/trunk2/mu/
-        log_std); the kernel consumes bf16 copies of the weights and
-        applies the default Box(0,1) tanh squash, so only the default
-        act_transform/obs layout is supported (parallel.ppo gates on
-        that). ``num_steps`` must be a multiple of MAX_TIMESTEP (whole
-        episodes — the PPO episodic path always passes exactly one).
-
-        Returns a dict with ``obs_blk`` (T, B, 232) bf16 — the kernel's
-        learner block (obs rows 0:168 in the kernel layout + the
-        pre-squash Gaussian draws u in rows 168:232; see
-        :func:`...ops.pallas.ev_rollout.ev_fused_layout`), ``reward``/
-        ``done`` (T, B), info rows profit/carbon_cost/excess_charge, and
-        the per-episode ``days`` draws.
-
-        ``noise`` (T, B, 64) prescribes the normal draws (parity tests);
-        default draws Box–Muller normals from the on-core PRNG."""
-        L = MAX_TIMESTEP
-        if num_steps % L != 0:
-            raise ValueError(f"num_steps must be a multiple of {L}")
-        if params.moer.dtype != jnp.float32:
-            raise ValueError("fused_policy_unroll needs float32 params")
-        if isinstance(params.proj, qp.SOCProjection):
-            raise ValueError("fused_policy_unroll supports the dual-FISTA "
-                             "projection only")
-        w = min(w, max(128, (batch // 128) * 128))
-        while batch % w:          # any 128-multiple batch works: halve the
-            w //= 2               # lane group down to an aligned width
-        if w < 128:
-            raise ValueError(f"batch {batch} must be a multiple of 128")
-        from ...ops.pallas.ev_rollout import (build_ev_operators,
-                                              fused_ev_policy_segment,
-                                              pack_policy_weights)
-
-        n = params.n_stations
-        nb = batch // w
-        _, ct_op, c_op, consts = build_ev_operators(params, w)
-        w1k, w2k, wmk, pb, pm = pack_policy_weights(policy, n)
-
-        # policy-mode day-table SLAB (see kernel layout): rows x day axis,
-        # consumed in-kernel via a per-step onehot matmul — no per-env
-        # (B, T, 240) gather/transpose ever materializes. Built from the
-        # packed step_table + moer pack per call (a ~35MB transform, noise
-        # next to the rollout itself).
-        dep_t = params.step_table[:, :, :n]
-        est_t = params.step_table[:, :, n:2 * n]
-        req_t = params.step_table[:, :, 2 * n:3 * n]
-        moer_next0 = params.step_table[:, :, 3 * n:3 * n + 1]
-
-        def pad_to(x, rows):
-            return jnp.pad(x, ((0, 0), (0, 0), (0, rows - x.shape[2])))
-
-        table = jnp.concatenate(
-            [pad_to(dep_t, 64), pad_to(req_t, 64), pad_to(est_t, 64),
-             params.moer, moer_next0,
-             jnp.zeros(moer_next0.shape[:2] + (10,), jnp.float32)],
-            axis=2)                                # (n_days, 289, 240)
-        D = params.n_days
-        Dp = -(-D // 128) * 128
-        slab = jnp.zeros((MAX_TIMESTEP, 240, Dp), jnp.float32)
-        slab = slab.at[:, :, :D].set(
-            jnp.transpose(table[:, :MAX_TIMESTEP], (1, 2, 0)))
-
-        key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, batch)
-        days = jax.vmap(lambda k: jax.random.randint(
-            k, (), 0, params.n_days))(init_keys)
-        keys = jax.random.split(key_scan, num_steps)
-
-        iters = int(params.proj.iters)
-        restart = bool(getattr(params.proj, "restart", True))
-
-        outs, lrns, day_list = [], [], []
-        t0 = 0
-        seg_idx = 0
-        while t0 < num_steps:
-            seg = L
-            onehot = (days[:, None] == jnp.arange(Dp)[None, :]).astype(
-                jnp.float32)                       # (B, Dp)
-            onehot = jnp.transpose(
-                onehot.reshape(nb, w, Dp), (0, 2, 1))  # (nb, Dp, w)
-            if noise is None:
-                nz = jnp.zeros((1, 1, 1, w), jnp.float32)
-                seed = jax.random.randint(
-                    jax.random.fold_in(key_scan, seg_idx), (),
-                    0, 2 ** 31 - 1)
-                use_rng = True
-            else:
-                nz = jnp.asarray(noise[t0:t0 + seg], jnp.float32)
-                nz = jnp.transpose(nz.reshape(seg, nb, w, 64), (1, 0, 3, 2))
-                seed = jnp.zeros((), jnp.int32)
-                use_rng = False
-            out, lrn = fused_ev_policy_segment(
-                ct_op, c_op, consts, w1k, w2k, wmk, pb, pm, slab, onehot,
-                nz, seed, seg, n, w, iters, bool(params.project_action),
-                restart, use_rng, interpret=interpret)
-            outs.append(out)
-            lrns.append(lrn)
-            day_list.append(days)
-            _, key_env = jax.random.split(keys[t0 + seg - 1])
-            days = self._autoreset_days(params, key_env, batch)
-            t0 += seg
-            seg_idx += 1
-
-        def field(out, i):
-            seg = out.shape[1]
-            return jnp.transpose(
-                out[:, :, i, :], (1, 0, 2)).reshape(seg, batch)
-
-        out = jnp.concatenate(outs, axis=1)
-        lrn = jnp.concatenate(lrns, axis=1)        # (nb, T, 232, w) bf16
-        # ZERO transposes on the learner block: it stays in the kernel's
-        # (block, feature-rows, lanes) layout — one block = all w lane
-        # envs of one (group, t) — and the PPO fused path shuffles,
-        # scores and updates directly in this layout (env index
-        # b = group * w + lane; time index t = block % T). An earlier
-        # (T, B, width) transpose of the 1.4GB block measured ~2x the
-        # kernel's own runtime.
-        width = lrn.shape[2]
-        obs_blk = lrn.reshape(nb * num_steps, width, w)
-
-        done = jnp.zeros((num_steps, batch), bool)
-        done = done.at[L - 1::L].set(True)
-        return {
-            "obs_blk_k": obs_blk,                  # (nb*T, width, w) bf16
-            "nb": nb, "w": w,
-            "reward": field(out, 0),
-            "done": done,
-            "profit": field(out, 1),
-            "carbon_cost": field(out, 2),
-            "excess_charge": field(out, 3),
-            "days": jnp.stack(day_list),           # (episodes, B)
-        }
 
     # ---- obs/info -------------------------------------------------------
     def _obs(self, params: EVParams, state: EVState) -> dict[str, jax.Array]:

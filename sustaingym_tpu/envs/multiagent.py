@@ -2,7 +2,7 @@
 
 The reference wraps each env in a PettingZoo ParallelEnv with per-agent
 dicts (/root/reference/sustaingym/envs/{evcharging,building,cogen}/
-multiagent_env.py). TPU-native design (SURVEY.md §7 rule 5): a multi-agent
+multiagent_env.py). Batched design (SURVEY.md §7 rule 5): a multi-agent
 env is a VIEW — obs carries an (n_agents, obs_dim) leading axis and reward
 an (n_agents,) axis over the SAME underlying state, so the whole system
 still vmaps/shards as one program. PettingZoo dict adapters live at the

@@ -6,7 +6,7 @@ step the market operator solves a multi-timestep security-constrained
 economic dispatch and the clearing PRICE is the dual of the power-balance
 constraint). Interior-point/simplex solvers are control-flow-heavy and
 host-bound; PDHG is pure matvecs with a deterministic iteration count, so
-thousands of market instances clear in lockstep on the MXU
+thousands of market instances clear in lockstep as batched matrix products
 (BASELINE.json config: "batch 4096").
 
 Problem form:
@@ -24,19 +24,22 @@ Iteration (with over-relaxation \bar{x} and diagonal step sizes):
 The paired block exists because SCED line-flow limits are two-sided:
 |PTDF x| <= rating contributes rows +S and -S. Solving the stacked form
 computes S x twice per iteration; here the matvec is shared, which removes
-~half the rows from the (batch, rows) x (rows, n) MXU matmuls — the
-dominant cost of the whole market env (measured compute-bound at the f32
-MXU rate). Mathematically the iterates are those of plain PDHG on the
-stacked matrix [A; S; -S; G] up to float reassociation (same
-preconditioner, same step sizes — |−S| = |S| row/col sums).
+~half the rows from the (batch, rows) x (rows, n) matmuls. Mathematically
+the iterates are those of plain PDHG on the stacked matrix [A; S; -S; G]
+up to float reassociation (same preconditioner, same step sizes —
+|−S| = |S| row/col sums).
 
-``matmul_dtype=jnp.bfloat16`` additionally runs the two big matmuls with
-bf16 inputs and f32 accumulation (2x MXU rate); iterates/duals stay f32.
-Validated against scipy HiGHS duals in tests/test_electricitymarket.py.
+``matmul`` sets the precision of every matrix product in the iteration:
+``"f32"`` (default, the reference solve) asks for full float32 products
+(``Precision.HIGHEST``); ``"tf32"`` leaves float32 products at the
+backend's DEFAULT precision, which is TF32 on an NVIDIA GPU and full
+float32 on a CPU. Iterates and duals stay float32 in both modes.
+Validated against scipy HiGHS duals in tests/test_electricitymarket.py
+and ``sustaingym_tpu.checks``.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +47,13 @@ import numpy as np
 
 from ..core.struct import dataclass, static_field
 
-__all__ = ["LPOperator", "make_lp_operator", "solve_lp", "LPSolution"]
+__all__ = ["LPOperator", "make_lp_operator", "solve_lp", "LPSolution",
+           "MATMUL_PRECISIONS"]
+
+# matrix-product precision modes of the PDHG iteration (module docstring)
+_PRECISION = {"f32": jax.lax.Precision.HIGHEST,
+              "tf32": jax.lax.Precision.DEFAULT}
+MATMUL_PRECISIONS = tuple(_PRECISION)
 
 
 @dataclass
@@ -52,10 +61,8 @@ class LPOperator:
     """Static problem structure with host-precomputed step sizes.
 
     The [A; S; G] blocks are kept SEPARATE (not stacked) and the iteration
-    runs one matmul per non-empty block: on TPU, in-loop
-    concatenate/slice of the dual vector forces layout changes that both
-    compile pathologically and run orders of magnitude slower than the
-    clean per-block matmuls (measured: 503s compile / 400x slower).
+    runs one matmul per non-empty block, so the dual vector is never
+    concatenated or sliced inside the loop.
     """
     A: jax.Array        # (me, n) equality rows
     S: jax.Array        # (ms, n) paired block: +/- S x <= (h_p, h_m)
@@ -69,8 +76,8 @@ class LPOperator:
     ms: int = static_field(default=0)   # paired rows (each yields +/-)
     mg: int = static_field(default=0)   # residual one-sided rows
     iters: int = static_field(default=400)
-    # None -> f32 matmuls; jnp.bfloat16 -> bf16 inputs, f32 accumulation
-    matmul_dtype: Any = static_field(default=None)
+    # matrix-product precision: "f32" | "tf32" (module docstring)
+    matmul: str = static_field(default="f32")
     # over-relaxation on the full PDHG operator (z+ = z + rho (T z - z)):
     # PDHG is averaged nonexpansive, so any rho < 2 converges; 1.0 = plain
     relax: float = static_field(default=1.0)
@@ -97,7 +104,7 @@ class LPSolution(NamedTuple):
 
 def make_lp_operator(A: np.ndarray, G: np.ndarray, iters: int = 400,
                      dtype=jnp.float32, sym: np.ndarray | None = None,
-                     matmul_dtype=None, relax: float = 1.0,
+                     matmul: str = "f32", relax: float = 1.0,
                      precond_alpha: float = 1.0,
                      merge_blocks: bool = False) -> LPOperator:
     """Builds the operator with diagonal (Pock-Chambolle) preconditioning:
@@ -124,6 +131,9 @@ def make_lp_operator(A: np.ndarray, G: np.ndarray, iters: int = 400,
     def row_sigma(Mat):
         return 1.0 / np.maximum((np.abs(Mat) ** a_exp).sum(axis=1), 1e-6)
 
+    if matmul not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul must be one of {MATMUL_PRECISIONS}, "
+                         f"got {matmul!r}")
     merged = bool(merge_blocks and A.shape[0] and S.shape[0]
                   and not G.shape[0])
     AS = np.vstack([A, S]) if merged else None
@@ -138,7 +148,7 @@ def make_lp_operator(A: np.ndarray, G: np.ndarray, iters: int = 400,
         AS_T=None if AS is None else jnp.asarray(AS.T.copy(), dtype),
         merge_blocks=merged,
         n=A.shape[1], me=A.shape[0], ms=S.shape[0], mg=G.shape[0],
-        iters=int(iters), matmul_dtype=matmul_dtype, relax=float(relax))
+        iters=int(iters), matmul=matmul, relax=float(relax))
 
 
 def solve_lp(op: LPOperator, c: jax.Array, b: jax.Array, h: jax.Array,
@@ -173,19 +183,13 @@ def solve_lp(op: LPOperator, c: jax.Array, b: jax.Array, h: jax.Array,
     h_p = h[..., :ms]
     h_m = h[..., ms:2 * ms]
     h_g = h[..., 2 * ms:]
-    mm = op.matmul_dtype
-
     def matmul(u, mat):
-        if mm is None:
-            return u @ mat
         return jax.lax.dot_general(
-            u.astype(mm), mat.astype(mm),
-            (((u.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
+            u, mat, (((u.ndim - 1,), (0,)), ((), ())),
+            precision=_PRECISION[op.matmul],
+            preferred_element_type=jnp.result_type(u.dtype, mat.dtype))
 
-    # the dual blocks stay SEPARATE carry elements with one matmul each:
-    # assembling them with in-loop concatenate/slice forces TPU layout
-    # changes that compile pathologically and run far off the MXU rate
+    # the dual blocks stay SEPARATE carry elements with one matmul each
     rho = op.relax
 
     merged = op.merge_blocks
@@ -194,11 +198,8 @@ def solve_lp(op: LPOperator, c: jax.Array, b: jax.Array, h: jax.Array,
         x, y, zp, zm, zg = carry
         if merged:
             # ONE matmul for the gradient and ONE for both dual
-            # residuals: the separate (B, me) @ (me, n) equality matvecs
-            # pad their tiny contraction dim to a full MXU tile each —
-            # for SCED (me=4 vs ms=156) they cost nearly as much as the
-            # big block despite carrying 2% of the rows. Iterates are
-            # identical up to float reassociation.
+            # residuals instead of one per block. Iterates are identical
+            # up to float reassociation.
             yz = jnp.concatenate([y, zp - zm], axis=-1)
             grad = c + matmul(yz, op.AS)
         else:

@@ -5,8 +5,8 @@ projection (/root/reference/sustaingym/envs/evcharging/env.py:178-221 +
 envs/utils.py:6-24) — a per-step, per-env CPU interior-point solve that
 dominates its wall time. Here the projection is a fixed-iteration
 first-order method, so a batch of thousands of projections is a handful of
-(B, n) x (n, 2m) matmuls per iteration on the MXU, with a deterministic
-iteration count (no data-dependent control flow under jit).
+(B, n) x (n, 2m) matmuls per iteration, with a deterministic iteration
+count (no data-dependent control flow under jit).
 
 Problem (projection):
     minimize    1/2 ||x - a||^2
@@ -26,18 +26,18 @@ nonsmooth term sum_k r_k ||lam_k|| has a block soft-threshold prox. Per-cone
 diagonal preconditioning (block row sums of |CC'|) plus gradient-restart
 Nesterov momentum converges in ~20 iterations where ADMM needs hundreds for
 the same accuracy, and each iteration is two skinny (n x 2m) matmuls —
-~4x fewer flops/iter than the ADMM x-step's dense (n, n) solve. Crucially
-the method is a descent scheme on a 16-dim dual, so it is robust to the
-TPU's DEFAULT matmul precision (bf16 MXU passes): measured max projection
-error vs a float64 ground truth is ~7e-3 at 30 iters on TPU DEFAULT
-precision, where the ADMM operator under the same precision returns
-feasible-but-far points (max error ~0.9 — its dual accumulators integrate
-the bf16 matmul noise; see tools/proj_experiment.py).
+~4x fewer flops/iter than the ADMM x-step's dense (n, n) solve. The
+method is a descent scheme on a 16-dim dual, so it tolerates
+reduced-precision matmuls, where the ADMM operator's dual accumulators
+integrate the rounding noise and return feasible-but-far points
+(tools/proj_experiment.py). Its float32 products are pinned to full
+float32 (``Precision.HIGHEST``): at TF32, the GPU's default for float32
+products, the Caltech cone limits overshot by 0.087 (> the 0.05 bound of
+``sustaingym_tpu.checks.projection_check``) on an H100.
 
 ``SOCProjection`` (:func:`make_soc_projection`) — the legacy over-relaxed
-ADMM splitting with a host-prefactorized (n, n) system. Kept for the fused
-Pallas kernel parity path and comparison; its matmuls are pinned to
-float32 precision to avoid the TPU DEFAULT-precision divergence above.
+ADMM splitting with a host-prefactorized (n, n) system, kept for
+comparison; its matmuls are pinned to float32 precision.
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ from ..core.struct import dataclass, static_field
 
 __all__ = ["SOCProjection", "DualSOCProjection", "make_soc_projection",
            "make_dual_soc_projection", "project"]
+
 
 
 @dataclass
@@ -75,9 +76,8 @@ class DualSOCProjection:
     iters: int = static_field(default=20)
     restart: bool = static_field(default=True)
     # store a/ub (and the xbar intermediate's inputs) as bfloat16 inside
-    # the iteration: the loop is HBM-bound on re-reading a/ub every
-    # iteration (profiled at 58% of the projected EV env step), so halving
-    # those bytes is a direct win. Iterates/dots stay f32; the final
+    # the iteration: the loop re-reads a/ub every iteration, so this
+    # halves the bytes it moves. Iterates/dots stay f32; the final
     # primal clip uses the exact f32 a/ub, so this solves a <=0.4%%-
     # perturbed problem exactly rather than the exact problem noisily —
     # measured max error vs float64 ground truth IMPROVES slightly
@@ -183,26 +183,31 @@ def _ball_project(v: jax.Array, radii: jax.Array) -> jax.Array:
     return (pairs * scale[..., None]).reshape(shape)
 
 
+def _dot(u: jax.Array, mat: jax.Array) -> jax.Array:
+    """Both operators' float32 products, at full float32 (module
+    docstring)."""
+    return jnp.matmul(u, mat, precision=jax.lax.Precision.HIGHEST)
+
+
 def _project_admm(op: SOCProjection, a: jax.Array, ub: jax.Array
                   ) -> jax.Array:
     rho = op.rho
     x = jnp.clip(a, 0.0, ub)
     z0 = x
     u0 = jnp.zeros_like(x)
-    # float32-pinned matmuls: at TPU DEFAULT precision (bf16 MXU passes) the
-    # ADMM dual accumulators integrate the rounding noise and the iteration
+    # float32-pinned matmuls (_dot): at reduced matmul precision the ADMM
+    # dual accumulators integrate the rounding noise and the iteration
     # stalls ~0.9 away from the true projection (tools/proj_experiment.py)
-    dot = lambda u, M: jnp.matmul(u, M, precision=jax.lax.Precision.HIGHEST)  # noqa: E731
-    zc = dot(x, op.C.T)
+    zc = _dot(x, op.C.T)
     uc = jnp.zeros_like(zc)
 
     alpha = op.alpha
 
     def body(_, carry):
         x, z0, u0, zc, uc = carry
-        rhs = a + rho * (z0 - u0) + rho * dot(zc - uc, op.C)
-        x = dot(rhs, op.K.T)
-        cx = dot(x, op.C.T)
+        rhs = a + rho * (z0 - u0) + rho * _dot(zc - uc, op.C)
+        x = _dot(rhs, op.K.T)
+        cx = _dot(x, op.C.T)
         # over-relaxed consensus updates
         xh = alpha * x + (1.0 - alpha) * z0
         cxh = alpha * cx + (1.0 - alpha) * zc
@@ -225,7 +230,7 @@ def _project_dual(op: DualSOCProjection, a: jax.Array, ub: jax.Array
         xbar      = clip(a - C' y, 0, ub)          (= grad f* at -C'y)
         lam_new   = blockshrink(y + T C xbar, T r)
         y         = lam_new + beta (lam_new - lam) (gradient-restart Nesterov)
-    Robust at TPU DEFAULT matmul precision — no pinning needed."""
+    """
     batch = a.shape[:-1]
     dtype = a.dtype
     lam = jnp.zeros(batch + (2 * op.m,), dtype)
@@ -259,16 +264,18 @@ def _project_dual(op: DualSOCProjection, a: jax.Array, ub: jax.Array
         tk1 = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * tk * tk))
         beta = (tk - 1.0) / tk1
         y = lam + beta[..., None] * (lam - lam_prev)
-        ydot = y @ op.C
+        ydot = _dot(y, op.C)
         if op.inner_bf16:
+            # bf16 operands: exact products, f32 accumulation
             xbar = jnp.clip(a_in - ydot.astype(jnp.bfloat16),
                             jnp.bfloat16(0), ub_in)
             cx = jax.lax.dot_general(
                 xbar, C16.T, (((xbar.ndim - 1,), (0,)), ((), ())),
+                precision=jax.lax.Precision.DEFAULT,
                 preferred_element_type=dtype)
         else:
             xbar = jnp.clip(a_in - ydot, 0.0, ub_in)
-            cx = xbar @ op.C.T
+            cx = _dot(xbar, op.C.T)
         lam_new = shrink(y + t2 * cx)
         if op.restart:
             # gradient restart (O'Donoghue & Candes): momentum reset when
@@ -278,7 +285,7 @@ def _project_dual(op: DualSOCProjection, a: jax.Array, ub: jax.Array
         return (lam_new, lam, tk1)
 
     lam, _, _ = jax.lax.fori_loop(0, op.iters, body, (lam, lam_prev, tk))
-    return jnp.clip(a - lam @ op.C, 0.0, ub)
+    return jnp.clip(a - _dot(lam, op.C), 0.0, ub)
 
 
 def project(op, a: jax.Array, ub: jax.Array) -> jax.Array:

@@ -3,7 +3,7 @@ algorithm set ("dqn, sac, ppo, a2c, or ddpg",
 /root/reference/docs/electricitymarketenv.md:84-90).
 
 Deterministic-policy-gradient sibling of the SAC learner (parallel/sac.py),
-sharing its TPU-first shape: on-device replay ring with the env axis
+sharing its device-resident shape: on-device replay ring with the env axis
 sharded over ``dp``, one fused rollout+update XLA program per train step.
 Differences from SAC: deterministic tanh actor with additive Gaussian
 exploration noise (no entropy term, no temperature), twin critics with

@@ -8,9 +8,9 @@ collectives over a global mesh — the only host-side machinery needed is:
 1. **Process-group init** (:func:`init_distributed`): one
    ``jax.distributed.initialize`` call per host, after which
    ``jax.devices()`` is the GLOBAL device list and meshes built by
-   ``parallel.mesh.make_mesh`` span the pod slice (gradient psums ride ICI
-   within a slice, DCN across slices — XLA picks the fabric from the mesh
-   layout, nothing NCCL/MPI-like to configure).
+   ``parallel.mesh.make_mesh`` span every process's GPUs (XLA hands the
+   gradient psums to NCCL: NVLink between the cards of a host, the network
+   between hosts — nothing to configure beyond the process group).
 
 2. **A per-host seed contract** (:func:`host_fold`, :func:`host_env_keys`):
    env shards on different hosts must draw DISJOINT episode/trace streams
@@ -43,11 +43,12 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Joins (or creates) the multi-host process group. Idempotent.
 
-    With no arguments, trusts the TPU pod metadata / cluster env vars that
-    ``jax.distributed.initialize`` auto-detects (GKE, GCE, SLURM). Explicit
-    arguments support the CPU-multiprocess CI harness::
+    With no arguments, joins only when a cluster is described: an explicit
+    ``JAX_COORDINATOR_ADDRESS``, or a multi-node SLURM job that
+    ``jax.distributed.initialize`` auto-detects. Otherwise pass the
+    coordinator, process count and rank explicitly::
 
-        init_distributed("127.0.0.1:9999", num_processes=2, process_id=rank)
+        init_distributed("localhost:9999", num_processes=2, process_id=rank)
 
     No-ops when the run is single-process and no coordinator is configured,
     so library code may call it unconditionally.
@@ -56,12 +57,7 @@ def init_distributed(coordinator_address: str | None = None,
     if _INITIALIZED:
         return
     explicit = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
-    # more-than-one-worker cluster hints only; single-host dev images often
-    # carry degenerate values (e.g. TPU_WORKER_HOSTNAMES=localhost)
-    hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    auto_env = (len([h for h in hosts.split(",") if h]) > 1
-                or "MEGASCALE_COORDINATOR_ADDRESS" in os.environ
-                or int(os.environ.get("SLURM_JOB_NUM_NODES", "1")) > 1)
+    auto_env = int(os.environ.get("SLURM_JOB_NUM_NODES", "1")) > 1
     if not explicit and not auto_env:
         return  # single-process run; jax.process_count() stays 1
     try:

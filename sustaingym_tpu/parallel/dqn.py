@@ -2,7 +2,7 @@
 ("dqn, sac, ppo, a2c, or ddpg", /root/reference/docs/electricitymarketenv.md:84-90)
 for discrete / discretized action spaces.
 
-TPU-first design mirrors the SAC learner (parallel/sac.py): the replay
+The design mirrors the SAC learner (parallel/sac.py): the replay
 buffer is an on-device ring shaped (capacity, num_envs, ...) with the env
 axis sharded over the mesh's ``dp`` axis, and one ``train_step`` is a
 single fused XLA program (epsilon-greedy ``lax.scan`` rollout writing the

@@ -4,7 +4,8 @@ The reference delegates all parallelism to Ray RLLib rollout workers and SB3
 subprocess envs (SURVEY.md §2.2). Here the whole actor+learner system is ONE
 SPMD program: the env batch axis is sharded over the mesh's ``dp`` axis, the
 policy MLP's hidden dimension over ``mp``; XLA inserts the psum/all-gather
-collectives (ICI within a slice, DCN across slices via jax.distributed).
+collectives, which run on NCCL across GPUs (every card of a host reaches
+every other over NVLink, so the mesh shape follows the algorithm alone).
 """
 from __future__ import annotations
 

@@ -6,8 +6,10 @@ Design: actors and learner are fused into ONE jitted SPMD program per
 iteration — a `lax.scan` rollout over vmapped envs (autoreset), GAE, and
 minibatched clipped-PPO epochs. The env-state/trajectory batch axis is
 sharded over the mesh's ``dp`` axis and the policy MLP's hidden dimension
-over ``mp``; gradient/metric all-reduce is XLA-inserted (no explicit
-NCCL/Ray analog — SURVEY.md §2.2, §5 'communication backend').
+over ``mp``; collectives are XLA-inserted (no explicit NCCL/Ray analog —
+SURVEY.md §2.2, §5 'communication backend'). The minibatch shuffle draws
+from the whole trajectory, so XLA gathers it before the epochs, which
+then run replicated on every ``dp`` device.
 
 The policy is a diag-Gaussian tanh MLP over flattened observations; discrete
 action components (cogen switches/bays, discretized wrappers) are handled by
@@ -57,19 +59,15 @@ class PPOConfig:
     # bfloat16: the policy consumes the SAME bf16 values at rollout,
     # behavior-logp scoring and every update epoch, so PPO ratios are
     # exactly 1 at epoch 0 (no hidden mismatch) — the policy simply trains
-    # on bf16-quantized inputs, the standard TPU activation precision. The
-    # matmuls already run bf16 on the MXU; this halves obs HBM traffic
-    # (packing, epoch shuffles, minibatch reads) — the dominant update
-    # cost for wide-obs envs (EV: 146-float obs, 1.9GB of samples at
-    # 8192x288). Default off: f32 obs reproduce pre-round-4 numerics.
+    # on bf16-quantized inputs. This halves the obs bytes moved by
+    # packing, epoch shuffles and minibatch reads (EV: 146-float obs,
+    # 1.9GB of samples at 8192x288). Default off: f32 obs.
     obs_bf16: bool = static_field(default=False)
     # target bytes per shuffle block (the unit of the epoch permutation):
-    # large blocks gather at full HBM bandwidth (round-5: the old ~2KB
-    # blocks cost as much as the whole minibatch grad loop on EV), but a
-    # minibatch must draw >= 16 blocks to remix across epochs, so narrow
-    # configs cap G below this target automatically. 32KB won the round-5
-    # sweep on the generic-path envs (cogen 18.7M / datacenter 26.2M vs
-    # 14.7M / 22.2M at 128KB and 17.6M / 25.0M at 2KB)
+    # larger blocks mean fewer, wider gathers, but a minibatch must draw
+    # >= 16 blocks to remix across epochs, so narrow configs cap G below
+    # this target automatically. The value is kept from an earlier sweep;
+    # it has not been re-swept on the H100 (ROADMAP item 1.6)
     shuffle_block_bytes: int = static_field(default=32768)
 
 
@@ -101,12 +99,10 @@ def policy_apply(params: dict[str, Any], obs: jax.Array
     the tensor-parallel axis: sharding trunk1.w's output dim over ``mp``
     makes XLA all-reduce the trunk2 matmul over the mesh.
 
-    The mu and value heads run as ONE matmul on concatenated weights: on
-    the MXU each output dim pads to a full 128-lane tile, so two separate
-    narrow heads (act_dim and 1 wide) cost two padded tiles where one
-    holds both. The param layout keeps separate 'mu'/'value' leaves
-    (checkpoints/sharding unchanged); the 56KB weight concat folds into
-    the matmul."""
+    The mu and value heads run as ONE matmul on concatenated weights
+    instead of two narrow ones. The param layout keeps separate
+    'mu'/'value' leaves (checkpoints/sharding unchanged); the 56KB weight
+    concat folds into the matmul."""
     h = jnp.tanh(obs @ params["trunk1"]["w"] + params["trunk1"]["b"])
     h = jnp.tanh(h @ params["trunk2"]["w"] + params["trunk2"]["b"])
     w_heads = jnp.concatenate([params["mu"]["w"], params["value"]["w"]],
@@ -147,8 +143,9 @@ def per_agent_apply(params: dict[str, Any], obs: jax.Array
     leading (n_agents,) axis (one policy per agent, the SPMD equivalent of
     the reference's per-agent RLLib PolicySpec,
     /root/reference/examples/cogen/train_rllib.py:119-132) and ``obs`` is
-    (..., n_agents, obs_dim). One batched einsum per layer keeps the agent
-    axis on the MXU instead of a Python loop over policies."""
+    (..., n_agents, obs_dim). One batched einsum per layer runs every
+    agent's policy in one product instead of a Python loop over
+    policies."""
     w1, b1 = params["trunk1"]["w"], params["trunk1"]["b"]
     h = jnp.tanh(jnp.einsum("...ad,adh->...ah", obs, w1) + b1)
     h = jnp.tanh(jnp.einsum("...ah,ahk->...ak", h,
@@ -191,16 +188,23 @@ def default_act_transform(env: FunctionalEnv, params, space=None):
 # ---------------------------------------------------------------------------
 
 def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
-                    act_transform=None, obs_fn=None):
+                    act_transform=None, obs_fn=None, mesh=None):
     """Builds (init_state, train_step) where train_step is one fused
-    rollout+update program: jit it with shardings from parallel.mesh."""
+    rollout+update program: jit it with shardings from parallel.mesh.
+
+    ``mesh``: the (dp, mp) mesh the carry is sharded over. The episodic
+    rollouts generate their env batch inside the step from one key, so
+    nothing in the carry tells XLA to split it; with a mesh their batch
+    axis is constrained to ``dp`` (without one, every card would run the
+    whole batch)."""
     if getattr(env, "ppo_incompatible", None):
         raise ValueError(env.ppo_incompatible)
     if cfg.algo not in ("ppo", "a2c"):
         raise ValueError(f"unknown on-policy algo {cfg.algo!r}")
     vstep = autoreset_vstep(env)
-    # the fused policy-in-kernel rollout bakes in the default flat-obs
-    # layout and the default tanh Box squash — custom callbacks opt out
+    # the uniform-obs multi-agent path rebuilds obs and actions from the
+    # base env with the default flat-obs layout and tanh Box squash —
+    # custom callbacks opt out of it
     user_act_transform = act_transform is not None
     user_obs_fn = obs_fn is not None
     # multi-agent views (env.agent_axis): obs are already flat float arrays
@@ -317,8 +321,7 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
             return (states, next_obs), out
 
         # ONE key split for the whole rollout instead of 2 splits per scan
-        # step (T kernel launches of B splits measured ~20% of the rollout
-        # at 4096x64); row t = [action key, env key x num_envs]
+        # step; row t = [action key, env key x num_envs]
         keys = jax.random.split(
             key, cfg.rollout_len * (cfg.num_envs + 1)).reshape(
             cfg.rollout_len, cfg.num_envs + 1, 2)
@@ -331,9 +334,9 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
     # When the rollout spans EXACTLY one episode of a fixed-length env that
     # provides a lockstep ``batch_unroll`` prefetcher, drive the rollout
     # through it: the generic vmapped step re-gathers per-(env, step)
-    # exogenous rows that batch_unroll amortizes per episode (EV's generic
-    # path measured 6.3M env-only steps/s at 4096 envs vs 25M+ through
-    # batch_unroll). The policy callback samples actions in-rollout from
+    # exogenous rows that batch_unroll amortizes per episode, and resets
+    # only at the episode boundary. The policy callback samples actions
+    # in-rollout from
     # the per-step action keys; afterwards (u, logp, value) are
     # RECONSTRUCTED in one batched pass — same params, same observations,
     # and the same `normal(key_act_t)` draws, so the values are
@@ -348,18 +351,6 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
     episodic = (ep_len is not None and cfg.rollout_len == ep_len
                 and hasattr(env, "batch_unroll")
                 and not pap and not discrete)
-    # policy-in-kernel tier (round-4 verdict item 1): when the env ships a
-    # Pallas rollout with the actor MLP inside (EVChargingEnv), whole
-    # episodes — obs assembly, sampling, projection, env step — run in one
-    # kernel and the learner re-scores (logp, value) from the returned
-    # (obs, u) in a single batched pass. Requires the default obs/action
-    # transforms (the kernel bakes them in) and bf16 obs storage (the
-    # kernel's learner block is bf16).
-    fused_episodic = (
-        episodic and not ma and cfg.obs_bf16
-        and not user_act_transform and not user_obs_fn
-        and getattr(env, "fused_policy_unroll_supported",
-                    lambda *_: False)(env_params, cfg.num_envs))
     # uniform-obs multi-agent fast path (e.g. MA-EV with periods_delay=0):
     # every agent's obs row is identical, so the policy trunk runs ONCE
     # per env and broadcasts over agents — gradient-exact for the shared
@@ -367,6 +358,7 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
     # contributions) and ~n_agents x less matmul work in rollout, scoring
     # and update than materializing the broadcast
     uma = (ma and episodic and not discrete
+           and not user_act_transform and not user_obs_fn
            and getattr(env, "uniform_agent_obs", None) is not None
            and env.uniform_agent_obs(env_params))
     if uma:
@@ -378,21 +370,33 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
         else:
             obs_fn_uma = _obs_fn_uma
 
+    if mesh is not None and mesh.shape["dp"] > 1:
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        def on_dp(tree, axis=0):
+            """Constrains ``axis`` of every leaf of ``tree`` to ``dp``."""
+            spec = NamedSharding(mesh, PartitionSpec(*[None] * axis, "dp"))
+            return jax.tree.map(
+                lambda x: jax.lax.with_sharding_constraint(x, spec), tree)
+    else:
+        def on_dp(tree, axis=0):
+            return tree
+
     def rollout_episodic(policy, key):
         def sampling_policy(p, obs_raw, k_act):
-            obs_f = jax.vmap(obs_fn)(obs_raw)
+            obs_f = jax.vmap(obs_fn)(on_dp(obs_raw))
             mu, log_std, _ = apply_fn(p, obs_f)
             u = mu + jnp.exp(log_std) * jax.random.normal(
                 k_act, mu.shape, mu.dtype)
-            return act_transform(u)
+            return on_dp(act_transform(u))
 
-        ts = env.batch_unroll(env_params, sampling_policy, policy, key,
-                              cfg.num_envs, cfg.rollout_len)
+        ts = on_dp(env.batch_unroll(env_params, sampling_policy, policy, key,
+                                    cfg.num_envs, cfg.rollout_len), 1)
         # re-derive the reset obs and per-step action keys with
         # batch_unroll's exact key derivation (one reset re-run per
         # episode — amortized noise)
         key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, cfg.num_envs)
+        init_keys = on_dp(jax.random.split(key_init, cfg.num_envs))
         _, ts0 = jax.vmap(env.reset, in_axes=(None, 0))(
             env_params, init_keys)
         keys = jax.random.split(key_scan, cfg.rollout_len)
@@ -417,66 +421,6 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
         last_value = jnp.zeros_like(value[0])
         return traj, last_value
 
-    # the fused path keeps the kernel's learner block in its NATIVE
-    # (block, feature-rows, lanes) layout end to end — one block = the w
-    # lane envs of one (group, t) — and scores it with a row-permuted
-    # trunk1 view: no flat-obs concat, no separate u array, and no
-    # layout transpose anywhere (a (T, B, width) transpose of the block
-    # measured ~2x the kernel's own runtime). Gradients flow through the
-    # (static) permutation back to the canonical checkpointed trunk1.
-    if fused_episodic:
-        _spec = env.fused_layout(env_params)
-        _row_map = np.asarray(_spec["w1_row_map"])
-        _row_valid = jnp.asarray((_row_map >= 0)[:, None])
-        _row_idx = np.where(_row_map >= 0, _row_map, 0)
-        _obs_cols, _u_lo = _spec["obs_cols"], _spec["u_lo"]
-        _LOG2PI = float(np.log(2.0 * np.pi))
-
-        def apply_fused_k(policy, blk):
-            """(mu, log_std, value, u) from (NBLK, width, w) blocks —
-            features on axis 1, lane envs on axis 2. bf16 operands, f32
-            accumulation (einsum preferred_element_type)."""
-            w1p = jnp.where(_row_valid, policy["trunk1"]["w"][_row_idx],
-                            0.0).astype(jnp.bfloat16)
-            obs = blk[:, :_obs_cols, :]
-            h = jnp.tanh(jnp.einsum(
-                "bfw,fh->bhw", obs, w1p,
-                preferred_element_type=jnp.float32)
-                + policy["trunk1"]["b"][None, :, None])
-            h = jnp.tanh(jnp.einsum(
-                "bfw,fh->bhw", h.astype(jnp.bfloat16),
-                policy["trunk2"]["w"].astype(jnp.bfloat16),
-                preferred_element_type=jnp.float32)
-                + policy["trunk2"]["b"][None, :, None])
-            w_heads = jnp.concatenate(
-                [policy["mu"]["w"], policy["value"]["w"]],
-                axis=1).astype(jnp.bfloat16)
-            b_heads = jnp.concatenate(
-                [policy["mu"]["b"], policy["value"]["b"]])
-            out = jnp.einsum(
-                "bfw,fh->bhw", h.astype(jnp.bfloat16), w_heads,
-                preferred_element_type=jnp.float32) + b_heads[None, :, None]
-            u = blk[:, _u_lo:_u_lo + act_dim, :].astype(jnp.float32)
-            return out[:, :-1, :], policy["log_std"], out[:, -1, :], u
-
-        def _logp_k(mu, log_std, u):
-            """Diag-Gaussian logp with the action dim on axis 1."""
-            ls = log_std[None, :, None]
-            terms = -0.5 * ((u - mu) ** 2 * jnp.exp(-2 * ls) + 2 * ls
-                            + _LOG2PI)
-            return jnp.sum(terms, axis=1)          # (NBLK, w)
-
-        def k_to_tb(x, nb, w):
-            """(nb*T, w) kernel-block order -> (T, B) env order."""
-            return jnp.swapaxes(
-                x.reshape(nb, cfg.rollout_len, w), 0, 1).reshape(
-                cfg.rollout_len, nb * w)
-
-        def tb_to_k(x, nb, w):
-            return jnp.swapaxes(
-                x.reshape(cfg.rollout_len, nb, w), 0, 1).reshape(
-                nb * cfg.rollout_len, w)
-
     def rollout_uma_episodic(policy, key):
         """Uniform-obs MA whole-episode rollout: base-env unroll with the
         trunk run once per env; (u, logp, value) reconstructed exactly as
@@ -485,17 +429,18 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
         A = uma_agents
 
         def sampling_policy(p, obs_raw, k_act):
-            obs_f = jax.vmap(obs_fn_uma)(obs_raw)          # (B, D)
+            obs_f = jax.vmap(obs_fn_uma)(on_dp(obs_raw))   # (B, D)
             mu, log_std, _ = apply_fn(p, obs_f)            # (B, 1)
             noise = jax.random.normal(
                 k_act, mu.shape[:-1] + (A,), mu.dtype)
             u = mu + jnp.exp(log_std) * noise              # (B, A)
-            return act_transform(u[..., None])[..., 0]     # (B, A) base act
+            return on_dp(act_transform(u[..., None])[..., 0])  # (B, A)
 
-        ts = env.uniform_ma_unroll(env_params, sampling_policy, policy,
-                                   key, cfg.num_envs, cfg.rollout_len)
+        ts = on_dp(env.uniform_ma_unroll(env_params, sampling_policy, policy,
+                                         key, cfg.num_envs,
+                                         cfg.rollout_len), 1)
         key_init, key_scan = jax.random.split(key)
-        init_keys = jax.random.split(key_init, cfg.num_envs)
+        init_keys = on_dp(jax.random.split(key_init, cfg.num_envs))
         _, ts0 = jax.vmap(env.base.reset, in_axes=(None, 0))(
             env_params.base, init_keys)
         keys = jax.random.split(key_scan, cfg.rollout_len)
@@ -516,19 +461,6 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
                 "done": ts.done}
         return traj, jnp.zeros_like(value[0])
 
-    def rollout_fused_episodic(policy, key):
-        out = env.fused_policy_unroll(env_params, policy, key,
-                                      cfg.num_envs, cfg.rollout_len)
-        blk = out["obs_blk_k"]                 # (nb*T, width, w) bf16
-        nb, w = out["nb"], out["w"]
-        mu, log_std, value_k, u = apply_fused_k(policy, blk)
-        logp_k = _logp_k(mu, log_std, u)
-        traj = {"obs": blk, "logp_k": logp_k,
-                "nb": nb, "w": w,
-                "value": k_to_tb(value_k, nb, w),
-                "reward": out["reward"], "done": out["done"]}
-        return traj, jnp.zeros_like(traj["value"][0])
-
     def gae(traj, last_value):
         def body(carry, x):
             adv_next, v_next = carry
@@ -547,11 +479,7 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
         return advs, advs + traj["value"]
 
     def loss_fn(policy, batch):
-        if fused_episodic:
-            mu_, log_std_, value, u_ = apply_fused_k(policy, batch["obs"])
-            logp = _logp_k(mu_, log_std_, u_)
-            dist_stats = log_std_
-        elif uma:
+        if uma:
             # trunk once per unique obs row; per-agent scalar logp around
             # the shared mu (act_dim == 1 per agent)
             mu_, log_std_, value = apply_fn(policy, batch["obs"])
@@ -590,12 +518,7 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
     def train_step(carry, key):
         policy, opt_state = carry["policy"], carry["opt"]
         k_roll, k_perm = jax.random.split(key)
-        if fused_episodic:
-            # policy-in-kernel Pallas rollout (whole episodes; carry
-            # untouched like the episodic path)
-            env_states, obs = carry["env_states"], carry["obs"]
-            traj, last_value = rollout_fused_episodic(policy, k_roll)
-        elif uma:
+        if uma:
             env_states, obs = carry["env_states"], carry["obs"]
             traj, last_value = rollout_uma_episodic(policy, k_roll)
         elif episodic:
@@ -609,58 +532,7 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
                 policy, carry["env_states"], carry["obs"], k_roll)
         advs, rets = gae(traj, last_value)
 
-        if fused_episodic:
-            # kernel-native minibatching: a shuffle unit is one WHOLE
-            # block — the w lane envs of one (group, t) — gathered as a
-            # contiguous ~0.5MB slab (full HBM bandwidth; the generic
-            # path's per-sample rows measured the 4-epoch shuffle as
-            # costly as the entire grad loop). Envs are iid, so
-            # block-granular shuffling is statistically free as long as
-            # every minibatch draws many blocks (NB/minibatches here:
-            # 8192x288 at w=1024 -> 32 blocks/minibatch).
-            nb, w = traj["nb"], traj["w"]
-            blk = traj["obs"]                   # (NB, width, w) bf16
-            NB, width = int(blk.shape[0]), int(blk.shape[1])
-            pk = jnp.stack([traj["logp_k"], tb_to_k(advs, nb, w),
-                            tb_to_k(rets, nb, w)], axis=1)  # (NB, 3, w)
-            mb_blocks = NB // cfg.minibatches
-            if mb_blocks == 0:
-                raise ValueError(
-                    f"PPO fused minibatching needs at least "
-                    f"{cfg.minibatches} kernel blocks, got {NB}")
-            dropped = (NB - mb_blocks * cfg.minibatches) * w
-            if dropped:
-                import warnings
-                warnings.warn(
-                    f"PPO fused minibatching drops {dropped} samples per "
-                    f"epoch ({NB} blocks not divisible by "
-                    f"minibatches={cfg.minibatches})", stacklevel=2)
-
-            def epoch(carry, key_e):
-                policy, opt_state = carry
-
-                def minibatch(c, d):
-                    policy, opt_state = c
-                    o, p = d
-                    batch = {"obs": o, "logp": p[:, 0], "adv": p[:, 1],
-                             "ret": p[:, 2]}
-                    (_, metrics), grads = jax.value_and_grad(
-                        loss_fn, has_aux=True)(policy, batch)
-                    updates, opt_state = opt.update(grads, opt_state,
-                                                    policy)
-                    policy = optax.apply_updates(policy, updates)
-                    return (policy, opt_state), metrics
-
-                perm = jax.random.permutation(key_e, NB)
-                sel = perm[:mb_blocks * cfg.minibatches]
-                blk_s = blk[sel].reshape(cfg.minibatches, mb_blocks,
-                                         width, w)
-                pk_s = pk[sel].reshape(cfg.minibatches, mb_blocks, 3, w)
-                (policy, opt_state), metrics = jax.lax.scan(
-                    minibatch, (policy, opt_state), (blk_s, pk_s))
-                return (policy, opt_state), metrics
-
-        elif pap:
+        if pap:
             # per-agent policies: a sample is one (time, env) pair carrying
             # the full agent axis, so each minibatch row still routes every
             # agent's slice to its own stacked parameters
@@ -692,15 +564,8 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
             u_w = int(flat["u"].shape[1])
             F = obs_w + u_w + logp_w + 2
             # pack every per-sample field into ONE (n, F) array so each
-            # epoch shuffles with a single wide gather: per-minibatch
-            # gathers of 10-40 byte rows profiled at 5.5 GB/s (~32x read
-            # amplification from lane padding) and were 69% of the whole
-            # train step's device time. (An "index" strategy — leave obs
-            # unmaterialized and row-gather per minibatch — measured WORSE
-            # for wide rows too: 53 GB/s on EV's 1 KB rows; TPU gather cost
-            # is per-index, so the same index count split across
-            # minibatches loses to one big gather. Round-4 negative
-            # result.)
+            # epoch shuffles with a single wide gather instead of one
+            # narrow gather per field per minibatch
             if cfg.obs_bf16:
                 # dual-array packing: obs stays bf16 (concatenating into
                 # one f32 array would up-cast it back and double the
@@ -723,107 +588,103 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
                      flat["logp"], advs.reshape(n, 1),
                      rets.reshape(n, 1)], axis=1)
 
-        if not fused_episodic:
-            if fields is None:
-                # per-agent path: rows are (n_agents, ...) slabs, wide enough
-                # that the plain row gather is not the bottleneck
-                mb = n // cfg.minibatches
-                dropped = n - mb * cfg.minibatches
-            else:
-                # shuffle BLOCKS of G adjacent samples. Flat order is
-                # (time, env): G adjacent rows are G INDEPENDENT envs at the
-                # same timestep, so block shuffling costs nothing statistically
-                # — blocks land in random minibatches, and their members are
-                # iid envs. Gather cost on TPU is dominated by the per-index
-                # overhead, so larger contiguous blocks are strictly cheaper
-                # until minibatch granularity suffers. Round-5 decomposition:
-                # at the old ~2KB blocks the 4-epoch shuffle cost as much as
-                # the ENTIRE minibatch grad loop (97ms vs 92ms, EV 8192x288);
-                # ~128KB blocks gather at full HBM bandwidth. Each minibatch
-                # must still draw >= 16 blocks so epoch composition remixes
-                # (a minibatch == one block would make the 72 minibatch SETS
-                # fixed across epochs, only reordered).
-                row_bytes = (obs_w * 2 + (u_w + logp_w + 2) * 4
-                             if cfg.obs_bf16 else F * 4)
-                G = 1
-                while (G * row_bytes < cfg.shuffle_block_bytes
-                       and n % (2 * G) == 0
-                       and n // (2 * G) >= 16 * cfg.minibatches):
-                    G *= 2
-                n_blocks = n // G
-                rest_F = int(packed.shape[1])
-                blocks = packed.reshape(n_blocks, G * rest_F)
-                blocks_obs = (packed_obs.reshape(n_blocks, G * obs_w)
-                              if packed_obs is not None else None)
-                mb_blocks = n_blocks // cfg.minibatches
-                mb = mb_blocks * G
-                dropped = n - mb * cfg.minibatches
-            if dropped == n:
-                raise ValueError(
-                    f"PPO minibatching would drop ALL {n} samples per epoch: "
-                    f"rollout_len*num_envs[*n_agents]={n} yields fewer than "
-                    f"minibatches={cfg.minibatches} rows. Lower minibatches or "
-                    f"raise num_envs/rollout_len.")
-            if dropped:
-                # n is static at trace time, so this warns once per compile (the
-                # SURVEY "no silent caps" rule): with agent-axis envs n is rarely
-                # a multiple of minibatches and the remainder never trains
-                import warnings
-                warnings.warn(
-                    f"PPO minibatching drops {dropped}/{n} samples per epoch "
-                    f"(rollout_len*num_envs[*n_agents]={n} not divisible by "
-                    f"minibatches={cfg.minibatches})", stacklevel=2)
+        if fields is None:
+            # per-agent path: rows are (n_agents, ...) slabs, wide enough
+            # that the plain row gather is not the bottleneck
+            mb = n // cfg.minibatches
+            dropped = n - mb * cfg.minibatches
+        else:
+            # shuffle BLOCKS of G adjacent samples. Flat order is
+            # (time, env): G adjacent rows are G INDEPENDENT envs at the
+            # same timestep, so block shuffling costs nothing statistically
+            # — blocks land in random minibatches, and their members are
+            # iid envs. Fewer, larger contiguous blocks mean fewer gather
+            # indices per epoch (block size: PPOConfig.shuffle_block_bytes).
+            # Each minibatch must still draw >= 16 blocks so epoch
+            # composition remixes
+            # (a minibatch == one block would make the 72 minibatch SETS
+            # fixed across epochs, only reordered).
+            row_bytes = (obs_w * 2 + (u_w + logp_w + 2) * 4
+                         if cfg.obs_bf16 else F * 4)
+            G = 1
+            while (G * row_bytes < cfg.shuffle_block_bytes
+                   and n % (2 * G) == 0
+                   and n // (2 * G) >= 16 * cfg.minibatches):
+                G *= 2
+            n_blocks = n // G
+            rest_F = int(packed.shape[1])
+            blocks = packed.reshape(n_blocks, G * rest_F)
+            blocks_obs = (packed_obs.reshape(n_blocks, G * obs_w)
+                          if packed_obs is not None else None)
+            mb_blocks = n_blocks // cfg.minibatches
+            mb = mb_blocks * G
+            dropped = n - mb * cfg.minibatches
+        if dropped == n:
+            raise ValueError(
+                f"PPO minibatching would drop ALL {n} samples per epoch: "
+                f"rollout_len*num_envs[*n_agents]={n} yields fewer than "
+                f"minibatches={cfg.minibatches} rows. Lower minibatches or "
+                f"raise num_envs/rollout_len.")
+        if dropped:
+            # n is static at trace time, so this warns once per compile (the
+            # SURVEY "no silent caps" rule): with agent-axis envs n is rarely
+            # a multiple of minibatches and the remainder never trains
+            import warnings
+            warnings.warn(
+                f"PPO minibatching drops {dropped}/{n} samples per epoch "
+                f"(rollout_len*num_envs[*n_agents]={n} not divisible by "
+                f"minibatches={cfg.minibatches})", stacklevel=2)
 
-            def unpack(mbarr):
-                out = {}
-                off = 0
-                for name, width in fields:
-                    col = mbarr[:, off:off + width]
-                    off += width
-                    out[name] = col
-                out["u"] = out["u"].astype(u_dtype)
-                if not uma:          # uma keeps the (mb, A) agent axis
-                    out["logp"] = out["logp"][:, 0]
-                out["adv"] = out["adv"][:, 0]
-                out["ret"] = out["ret"][:, 0]
-                return out
+        def unpack(mbarr):
+            out = {}
+            off = 0
+            for name, width in fields:
+                col = mbarr[:, off:off + width]
+                off += width
+                out[name] = col
+            out["u"] = out["u"].astype(u_dtype)
+            if not uma:          # uma keeps the (mb, A) agent axis
+                out["logp"] = out["logp"][:, 0]
+            out["adv"] = out["adv"][:, 0]
+            out["ret"] = out["ret"][:, 0]
+            return out
 
-            def epoch(carry, key_e):
+        def epoch(carry, key_e):
+            policy, opt_state = carry
+
+            def minibatch(carry, batch):
                 policy, opt_state = carry
-
-                def minibatch(carry, batch):
-                    policy, opt_state = carry
-                    (_, metrics), grads = jax.value_and_grad(
-                        loss_fn, has_aux=True)(policy, batch)
-                    updates, opt_state = opt.update(grads, opt_state, policy)
-                    policy = optax.apply_updates(policy, updates)
-                    return (policy, opt_state), metrics
-
-                if fields is None:
-                    perm = jax.random.permutation(key_e, n)
-                    idxs = perm[:mb * cfg.minibatches].reshape(
-                        cfg.minibatches, mb)
-                    (policy, opt_state), metrics = jax.lax.scan(
-                        lambda c, idx: minibatch(
-                            c, jax.tree.map(lambda x: x[idx], flat)),
-                        (policy, opt_state), idxs)
-                else:
-                    perm = jax.random.permutation(key_e, n_blocks)
-                    sel = perm[:mb_blocks * cfg.minibatches]
-                    shuffled = blocks[sel]
-                    mbs = shuffled.reshape(cfg.minibatches, mb, rest_F)
-                    if blocks_obs is not None:
-                        obs_mbs = blocks_obs[sel].reshape(
-                            cfg.minibatches, mb, obs_w)
-                        (policy, opt_state), metrics = jax.lax.scan(
-                            lambda c, arrs: minibatch(
-                                c, {**unpack(arrs[0]), "obs": arrs[1]}),
-                            (policy, opt_state), (mbs, obs_mbs))
-                    else:
-                        (policy, opt_state), metrics = jax.lax.scan(
-                            lambda c, arr: minibatch(c, unpack(arr)),
-                            (policy, opt_state), mbs)
+                (_, metrics), grads = jax.value_and_grad(
+                    loss_fn, has_aux=True)(policy, batch)
+                updates, opt_state = opt.update(grads, opt_state, policy)
+                policy = optax.apply_updates(policy, updates)
                 return (policy, opt_state), metrics
+
+            if fields is None:
+                perm = jax.random.permutation(key_e, n)
+                idxs = perm[:mb * cfg.minibatches].reshape(
+                    cfg.minibatches, mb)
+                (policy, opt_state), metrics = jax.lax.scan(
+                    lambda c, idx: minibatch(
+                        c, jax.tree.map(lambda x: x[idx], flat)),
+                    (policy, opt_state), idxs)
+            else:
+                perm = jax.random.permutation(key_e, n_blocks)
+                sel = perm[:mb_blocks * cfg.minibatches]
+                shuffled = blocks[sel]
+                mbs = shuffled.reshape(cfg.minibatches, mb, rest_F)
+                if blocks_obs is not None:
+                    obs_mbs = blocks_obs[sel].reshape(
+                        cfg.minibatches, mb, obs_w)
+                    (policy, opt_state), metrics = jax.lax.scan(
+                        lambda c, arrs: minibatch(
+                            c, {**unpack(arrs[0]), "obs": arrs[1]}),
+                        (policy, opt_state), (mbs, obs_mbs))
+                else:
+                    (policy, opt_state), metrics = jax.lax.scan(
+                        lambda c, arr: minibatch(c, unpack(arr)),
+                        (policy, opt_state), mbs)
+            return (policy, opt_state), metrics
 
         (policy, opt_state), metrics = jax.lax.scan(
             epoch, (policy, opt_state), jax.random.split(k_perm, cfg.epochs))
@@ -849,7 +710,6 @@ def make_train_step(env: FunctionalEnv, env_params, cfg: PPOConfig,
         return act_transform(mu)
 
     train_step.episodic = episodic  # introspection (tests/bench labeling)
-    train_step.fused_rollout = fused_episodic
     train_step.uma = uma            # uniform-obs MA fast path active
     train_step.actor_fn = actor_fn       # deterministic eval policy
     train_step.actor_key = "policy"      # carry subtree holding its params
@@ -860,7 +720,8 @@ def train(env: FunctionalEnv, env_params, cfg: PPOConfig, key: jax.Array,
           num_iterations: int, mesh=None, verbose: bool = True):
     """Runs PPO; with a mesh, shards env/trajectory batch over 'dp' and
     policy hidden over 'mp'."""
-    init_state, train_step = make_train_step(env, env_params, cfg)
+    init_state, train_step = make_train_step(env, env_params, cfg,
+                                             mesh=mesh)
     k_init, k_train = jax.random.split(key)
     carry = init_state(k_init)
 

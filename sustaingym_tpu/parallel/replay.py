@@ -10,11 +10,10 @@ so a sampling fix lands once, not three times.
 Sampling modes (``per_env_sample``):
 
 - ``False`` (default): draw ``batch_per_env`` shared ring slots and take
-  WHOLE ``(num_envs, ...)`` slices. Per-env time indices profiled at
-  4 GB/s — ``take_along_axis`` gathers feature-dim-wide runs per
-  (slot, env) pair, the 128-lane-padding poison — and at 47% of the SAC
-  train step; whole-slice rows gather at full width and stay local to
-  each dp shard. The honest trade-off: functional autoreset keeps the
+  WHOLE ``(num_envs, ...)`` slices. Per-env time indices would make
+  ``take_along_axis`` gather one feature-dim-wide run per (slot, env)
+  pair; whole-slice rows gather at full width and stay local to each dp
+  shard. The honest trade-off: functional autoreset keeps the
   batch in episode lockstep, so one slot holds every env at the SAME
   in-episode phase (envs differ by their day/epoch draw, not phase) —
   each update batch covers ``batch_per_env`` phases rather than
@@ -60,8 +59,7 @@ def write_block(buffer: dict, block: dict, written: jax.Array,
     ``capacity % T == 0``, so the write never wraps. This replaces T
     per-step writes from inside the rollout scan: carrying the full ring
     through the scan made XLA materialize ring-sized copies/layout
-    converts at the while-loop boundaries (~1.9ms of a 21ms SAC train
-    step at 4096x64, xprof round 4).
+    converts at the while-loop boundaries.
 
     A checkpoint resumed under a DIFFERENT --rollout-len can carry a
     ``written`` that is not a T-multiple; dynamic_update_slice would then

@@ -3,7 +3,7 @@ covering the reference harnesses' SAC option (/root/reference/examples/
 evcharging/train_rllib.py:43-84 ``--algo [ppo|sac]``, train_stable_baselines
 .py:156-187 ``--algo [ppo|a2c|sac]``).
 
-TPU-first design:
+Design:
 - The replay buffer lives ON DEVICE as a fixed-size ring over the time axis,
   shaped ``(capacity, num_envs, ...)`` with the env axis sharded over the
   mesh's ``dp`` axis. Sampling draws per-env time indices, so gathers stay

@@ -165,73 +165,6 @@ def test_batch_unroll_matches_generic(param_dict):
                 err_msg=k)
 
 
-def test_fused_rollout_multi_segment(param_dict):
-    """Fused rollout across TWO episode boundaries (RNG mode): the wrapper
-    must resample epochs per segment, splice autoreset obs, and keep shapes/
-    termination structure identical to batch_unroll's."""
-    env = BuildingEnv()
-    p = dict(param_dict)
-    p["episode_len"] = 10
-    params = make_params(p, dtype=jnp.float32)
-    batch, steps = 256, 25
-    actions = jax.random.uniform(
-        jax.random.PRNGKey(2), (steps, batch, params.n), jnp.float32,
-        minval=-1.0, maxval=1.0) * jnp.asarray(params.ac_map)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    traj = env.fused_rollout(params, jax.random.PRNGKey(8), batch, steps,
-                             actions=actions, il=2, width=128,
-                             interpret=not on_tpu)
-    assert traj.reward.shape == (steps, batch)
-    assert np.all(np.isfinite(np.asarray(traj.obs)))
-    terms = np.asarray(traj.terminated)
-    assert terms[9].all() and terms[19].all()
-    assert not terms[[0, 5, 10, 15, 20, 24]].any()
-    # rewards keep flowing after resets (fresh epochs each episode)
-    assert np.asarray(traj.reward)[10:20].std() > 0
-
-
-def test_fused_rollout_matches_step_loop(param_dict):
-    """The fused Pallas rollout (prescribed-actions mode, interpret on CPU)
-    must reproduce the vmapped step loop on the same epochs/actions."""
-    env = BuildingEnv()
-    p = dict(param_dict)
-    p["episode_len"] = 10
-    params = make_params(p, dtype=jnp.float32)
-    batch, steps, il, width = 256, 10, 2, 128
-    key = jax.random.PRNGKey(5)
-
-    n = params.n
-    actions = jax.random.uniform(
-        jax.random.PRNGKey(6), (steps, batch, n), jnp.float32,
-        minval=-1.0, maxval=1.0) * jnp.asarray(params.ac_map)
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    fast = env.fused_rollout(params, key, batch, steps, actions=actions,
-                             il=il, width=width, interpret=not on_tpu)
-
-    # reference: same epoch derivation (batch_reset stream) + vmapped steps
-    key_init, _ = jax.random.split(key)
-    init_keys = jax.random.split(key_init, batch)
-    states, _ = jax.vmap(env.reset, in_axes=(None, 0))(params, init_keys)
-
-    def body(st, a_t):
-        st, ts = jax.vmap(env.step, in_axes=(None, 0, 0, None))(
-            params, st, a_t, key)
-        return st, ts
-
-    _, ref = jax.lax.scan(body, states, actions)
-    np.testing.assert_allclose(np.asarray(fast.reward),
-                               np.asarray(ref.reward), rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(fast.info["zone_temperature"]),
-        np.asarray(ref.info["zone_temperature"]), rtol=2e-5, atol=2e-4)
-    # obs at non-boundary steps (the boundary row is the autoreset splice)
-    np.testing.assert_allclose(np.asarray(fast.obs[:-1]),
-                               np.asarray(ref.obs[:-1]), rtol=2e-5, atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(fast.terminated),
-                                  np.asarray(ref.terminated))
-
-
 def test_discrete_action_mode(param_dict):
     env = BuildingEnv()
     p = dict(param_dict)

@@ -112,38 +112,6 @@ def test_batch_unroll_matches_generic():
             atol=1e-6, err_msg="obs")
 
 
-def test_fused_rollout_matches_step_loop():
-    """Fused Pallas datacenter rollout (prescribed-actions mode) vs the
-    vmapped step loop on the same months/actions."""
-    env, params = dc.make_env()
-    batch, steps, il, width = 256, 30, 2, 128
-    key = jax.random.PRNGKey(9)
-    actions = jax.random.uniform(jax.random.PRNGKey(10), (steps, batch, 1))
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    fast = env.fused_rollout(params, key, batch, steps, actions=actions,
-                             il=il, width=width, interpret=not on_tpu)
-
-    key_init, _ = jax.random.split(key)
-    init_keys = jax.random.split(key_init, batch)
-    states, _ = jax.vmap(env.reset, in_axes=(None, 0))(params, init_keys)
-
-    def body(st, a_t):
-        st, ts = jax.vmap(env.step, in_axes=(None, 0, 0, None))(
-            params, st, a_t, key)
-        return st, ts
-
-    _, ref = jax.lax.scan(body, states, actions)
-    np.testing.assert_allclose(np.asarray(fast.reward),
-                               np.asarray(ref.reward), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(fast.obs), np.asarray(ref.obs),
-                               rtol=1e-6, atol=1e-6)
-    for k in ref.info:
-        np.testing.assert_allclose(np.asarray(fast.info[k]),
-                                   np.asarray(ref.info[k]),
-                                   rtol=1e-6, atol=1e-6, err_msg=k)
-
-
 def test_arrival_trace_calibration():
     """Pins the synthetic Google-cluster-like arrival trace's summary
     statistics (docs/datacenterenv.md trace description) so refactors

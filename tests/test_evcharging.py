@@ -20,6 +20,7 @@ from sustaingym_tpu.envs import evcharging
 from sustaingym_tpu.envs.evcharging.env import (
     A_PERS_TO_KWH, ACTION_SCALE_FACTOR, BATTERY_CAPACITY, MAX_TIMESTEP,
     PROFIT_FACTOR, TRANSITION_SOC, battery_charge, quantize_pilots)
+from sustaingym_tpu.checks import projection_reference
 from sustaingym_tpu.ops import qp
 from sustaingym_tpu.core import batch_rollout, random_policy
 
@@ -103,40 +104,16 @@ def test_qp_projection_batched():
     np.testing.assert_allclose(xb[0], x0, atol=3e-5)
 
 
-def _f64_ground_truth(C, radii, A, UB, iters=8000, rho=2.0, alpha=1.7):
-    """float64 numpy ADMM at a huge iteration budget — verified to match
-    scipy SLSQP to 1e-6 on this geometry (tools/proj_gt_check.py)."""
-    n = C.shape[1]
-    K = np.linalg.inv((1.0 + rho) * np.eye(n) + rho * (C.T @ C))
-    x = np.clip(A, 0, UB)
-    z0 = x.copy()
-    u0 = np.zeros_like(x)
-    zc = x @ C.T
-    uc = np.zeros_like(zc)
-    for _ in range(iters):
-        rhs = A + rho * (z0 - u0) + rho * ((zc - uc) @ C)
-        x = rhs @ K.T
-        cx = x @ C.T
-        xh = alpha * x + (1 - alpha) * z0
-        cxh = alpha * cx + (1 - alpha) * zc
-        z0 = np.clip(xh + u0, 0, UB)
-        v = (cxh + uc).reshape(len(A), -1, 2)
-        nr = np.sqrt((v ** 2).sum(-1) + 1e-12)
-        sc = np.minimum(1.0, radii / nr)
-        zc = (v * sc[..., None]).reshape(len(A), -1)
-        u0 = u0 + xh - z0
-        uc = uc + cxh - zc
-    return np.clip(x, 0, UB)
 
 
 def test_dual_projection_batched_accuracy():
     """BATCHED dual-FISTA projection vs float64 ground truth at realistic
     (a, ub) (30% unplugged stations). This is the regression the ADMM
-    operator failed at TPU DEFAULT matmul precision: batched matmuls ran
-    as bf16 MXU passes and the ADMM dual accumulators integrated the noise
-    to ~0.9 max error while staying feasible (round-3 finding,
-    tools/proj_experiment.py). The dual method is a descent scheme on a
-    16-dim dual and stays ~7e-3-accurate even at bf16 matmul precision."""
+    operator failed under reduced-precision (bf16) matmuls: its dual
+    accumulators integrated the rounding noise to ~0.9 max error while
+    staying feasible (tools/proj_experiment.py). The dual method is a
+    descent scheme on a 16-dim dual and stays ~7e-3-accurate even at bf16
+    matmul precision."""
     spec = evcharging.caltech_site()
     op = qp.make_dual_soc_projection(
         spec.constraint_matrix, spec.phase_angles, spec.magnitudes,
@@ -149,7 +126,7 @@ def test_dual_projection_batched_accuracy():
     A = rng.uniform(0, 1, (B, n))
     UB = np.minimum(1.0, rng.uniform(0, 2, (B, n)))
     UB[rng.uniform(size=UB.shape) < 0.3] = 0.0
-    xs = _f64_ground_truth(C, radii, A, UB)
+    xs = projection_reference(C, radii, A, UB)
     x = np.asarray(qp.project(op, jnp.asarray(A, jnp.float32),
                               jnp.asarray(UB, jnp.float32)), np.float64)
     assert np.abs(x - xs).max() < 0.03
@@ -181,7 +158,7 @@ def test_dual_projection_stress_battery():
             A = np.concatenate([np.ones((1, n)), np.ones((1, n)), a_sp])
             UB = np.concatenate([np.ones((1, n)), np.full((1, n), 0.03),
                                  ub_sp])
-            xs = _f64_ground_truth(C, radii, A, UB, iters=20000)
+            xs = projection_reference(C, radii, A, UB, iters=20000)
             x = np.asarray(qp.project(op, jnp.asarray(A, jnp.float32),
                                       jnp.asarray(UB, jnp.float32)),
                            np.float64)
@@ -201,7 +178,7 @@ def test_dual_projection_spectral_scale_convergent():
     rng = np.random.default_rng(5)
     A = rng.uniform(0, 1, (8, n))
     UB = np.minimum(1.0, rng.uniform(0, 2, (8, n)))
-    xs = _f64_ground_truth(C, radii, A, UB)
+    xs = projection_reference(C, radii, A, UB)
     x = np.asarray(qp.project(op, jnp.asarray(A, jnp.float32),
                               jnp.asarray(UB, jnp.float32)), np.float64)
     assert np.abs(x - xs).max() < 2e-3

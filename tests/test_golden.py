@@ -43,10 +43,12 @@ STEPS = {"evcharging": 120, "cogen": 24, "electricitymarket": 12,
          "datacenter": 48, "building": 24}
 
 
-@pytest.mark.skipif(jax.devices()[0].platform != "cpu",
-                    reason="goldens recorded on CPU")
 @pytest.mark.parametrize("name", sorted(STEPS))
 def test_golden_rewards(name):
+    # decided inside the test (never at import): xdist workers must all
+    # collect the same tests
+    if jax.devices()[0].platform != "cpu":
+        pytest.skip("goldens recorded on CPU")
     data = np.load(GOLDEN)
     env, params = make(name)
     traj = batch_rollout(env, params, random_policy(env, params, 4), None,

@@ -409,46 +409,6 @@ def test_ma_ev_episodic_fast_path_reconstruction_exact():
     assert float(metrics["episode_done_frac"]) == pytest.approx(1.0 / L)
 
 
-def _on_tpu():
-    import jax
-    return jax.devices()[0].platform == "tpu"
-
-
-@pytest.mark.skipif(not _on_tpu.__call__(), reason="needs a real TPU "
-                    "(the policy kernel has no interpret-mode PRNG)")
-def test_fused_policy_rollout_lr0_and_learns():
-    """TPU-only: the policy-in-kernel PPO path keeps the lr=0 exact-ratio
-    invariant (stored logp == re-scored logp on the kernel's learner
-    block) and actually improves reward over iterations. Skipped on the
-    CPU CI mesh; covered in interpret mode by
-    tests/test_ops_pallas.py::test_fused_policy_kernel_matches_xla_reference."""
-    env, params = make("evcharging", project_action=False)
-    L = env.episode_steps(params)
-    cfg = PPOConfig(num_envs=256, rollout_len=L, lr=0.0, epochs=1,
-                    minibatches=4, obs_bf16=True)
-    init_state, train_step = make_train_step(env, params, cfg)
-    assert train_step.fused_rollout
-    carry = init_state(jax.random.PRNGKey(0))
-    carry, metrics = jax.jit(train_step)(carry, jax.random.PRNGKey(1))
-    assert abs(float(metrics["pg_loss"])) < 1e-5, metrics
-
-    cfg2 = PPOConfig(num_envs=512, rollout_len=L, lr=1e-3, epochs=2,
-                     minibatches=4, obs_bf16=True)
-    init_state, train_step = make_train_step(env, params, cfg2)
-    assert train_step.fused_rollout
-    carry = init_state(jax.random.PRNGKey(0))
-    step = jax.jit(train_step, donate_argnums=0)
-    rewards = []
-    for i in range(10):
-        carry, metrics = step(carry, jax.random.fold_in(
-            jax.random.PRNGKey(2), i))
-        rewards.append(float(metrics["mean_reward"]))
-    assert np.isfinite(rewards).all()
-    # EV reward grows with charging profit: a learning policy must beat
-    # the initial near-zero-action policy
-    assert np.mean(rewards[-3:]) > np.mean(rewards[:3]), rewards
-
-
 def test_uma_fast_path_matches_generic_ma():
     """The uniform-obs MA fast path (periods_delay=0: trunk once per env,
     per-agent sampling around the shared mu) must produce the SAME

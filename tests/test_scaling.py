@@ -68,3 +68,34 @@ def test_dp1_vs_dp8_metric_equivalence():
     # reassociation noise across all metrics with 1e5 margin over measured
     # (1.8e-7) while still failing loudly on any real layout bug
     assert eq["dp1_vs_dpN_metrics_max_abs_diff"] < 1e-2, eq
+
+
+@pytest.mark.parametrize("env_name,kwargs", [
+    ("evcharging", {"project_action": False}),
+    ("evcharging-multiagent", {"periods_delay": 0}),
+])
+def test_episodic_step_splits_env_batch_over_dp(env_name, kwargs):
+    """The episodic rollouts build their env batch inside the step, so only
+    the mesh given to make_train_step splits it: the dp=4 program must
+    hold per-device (T, B/4) trajectories and collectives."""
+    import jax
+
+    from sustaingym_tpu import make
+    from sustaingym_tpu.bench.scaling import collective_counts
+    from sustaingym_tpu.parallel import PPOConfig, make_mesh
+    from sustaingym_tpu.parallel.mesh import data_sharding, replicated
+    from sustaingym_tpu.parallel.ppo import _shard_carry, make_train_step
+
+    env, params = make(env_name, **kwargs)
+    T, B = 288, 16
+    cfg = PPOConfig(num_envs=B, rollout_len=T, hidden=16, epochs=1,
+                    minibatches=2)
+    mesh = make_mesh(4)
+    init_state, train_step = make_train_step(env, params, cfg, mesh=mesh)
+    assert train_step.episodic
+    carry = _shard_carry(init_state(jax.random.PRNGKey(0)), mesh,
+                         data_sharding(mesh), replicated(mesh))
+    hlo = jax.jit(train_step).lower(carry, jax.random.PRNGKey(1)) \
+        .compile().as_text()
+    assert f"[{T},{B // 4}," in hlo or f"[{T},{B // 4}]" in hlo
+    assert collective_counts(hlo)["all-reduce"] > 0

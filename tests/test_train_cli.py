@@ -1,4 +1,4 @@
-"""Train CLI end-to-end tests: CSV logging, orbax checkpointing, resume.
+"""Train CLI end-to-end tests: CSV logging, npz checkpointing, resume.
 
 Covers the checkpoint/resume contract of SURVEY.md §5 through the real
 command-line surface for every learner family (the reference delegates
@@ -69,7 +69,7 @@ def test_checkpoint_roundtrip_exact(tmp_path):
     from sustaingym_tpu import make
     from sustaingym_tpu.parallel import SACConfig, make_sac_train_step
 
-    env, params = make("building")
+    env, params = make("evcharging", project_action=False)
     cfg = SACConfig(num_envs=4, rollout_len=2, capacity=8, batch_per_env=2,
                     updates=1, hidden=8)
     init_state, train_step = make_sac_train_step(env, params, cfg)
@@ -104,3 +104,26 @@ def test_eval_callback_writes_breakdown_and_best_model(tmp_path, algo):
     assert "comfort_level" in rows[0] and "power_consumption" in rows[0]
     assert np.isfinite(float(rows[0]["mean_return"]))
     assert os.path.isdir(os.path.join(log_dir, "best_model"))
+
+
+def test_checkpoint_roundtrip_bf16_leaves(tmp_path):
+    """bfloat16 carry leaves (PPO obs with --obs-bf16) survive the npz
+    round trip bit for bit."""
+    from sustaingym_tpu import make
+    from sustaingym_tpu.parallel import PPOConfig, make_train_step
+
+    env, params = make("evcharging", project_action=False)
+    cfg = PPOConfig(num_envs=4, rollout_len=4, hidden=8, epochs=1,
+                    minibatches=2, obs_bf16=True)
+    init_state, train_step = make_train_step(env, params, cfg)
+    carry, _ = jax.jit(train_step)(init_state(jax.random.PRNGKey(0)),
+                                   jax.random.PRNGKey(1))
+    assert carry["obs"].dtype == jax.numpy.bfloat16
+    save_checkpoint(str(tmp_path), carry, 3)
+    restored, step = restore_checkpoint(str(tmp_path),
+                                        init_state(jax.random.PRNGKey(0)))
+    assert step == 3
+    for a, b in zip(jax.tree.leaves(carry), jax.tree.leaves(restored)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))
